@@ -1,12 +1,13 @@
-"""duckdb_imputation_tpu — TPU-native factorized in-database-style ML & MICE imputation.
+"""duckdb_imputation_tpu — factorized in-database-style ML & MICE imputation on accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 eddbase/duckdb-imputation (PACMMOD'24 "In-Database Data Imputation"):
 ring cofactor aggregates ("triples"), models trained directly from the
 aggregates (linear/stochastic regression, LDA, QDA, gaussian+categorical
 naive Bayes), and MICE imputation drivers with delta-aggregate retraining —
-re-architected for TPU: dense vocab layout, MXU Gram-matrix aggregation,
-pjit/shard_map data parallelism over device meshes.
+re-architected around dense device linear algebra: dense vocab layout,
+masked Gram-matrix aggregation (XLA, or a Pallas kernel on the GPU),
+shard_map data parallelism over device meshes.
 """
 
 from .schema import FeatureSchema

@@ -175,7 +175,7 @@ def factorized_sum(a: Cofactor, b: Cofactor) -> Cofactor:
     """Fused `sum_triple(multiply_triple(A, B))` over per-join-key triples —
     the factorized-join aggregation of README.md:163-174 (and the intent of
     the reference's dead factorized_imputation_*.h drivers) as one jitted
-    bundle of MXU contractions over the key axis.
+    bundle of matrix contractions over the key axis.
 
     `a`/`b` are batched Cofactors from `sum_to_triple(..., group_by=key)`
     with the SAME num_groups (key space). Returns the single joined triple."""

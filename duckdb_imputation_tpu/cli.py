@@ -35,12 +35,10 @@ def cmd_impute(args):
 
     t = read_csv(args.csv)
     timer = PhaseTimer(verbose=args.verbose)
-    if args.mode in ("device", "fused", "delta"):
+    if args.mode in ("device", "delta"):
         # the single-dispatch on-device loop (whole MICE run = one XLA
-        # program); 'fused' chains the impute+aggregate Pallas kernel
-        # (2 table passes per round; stochastic noise drawn in-kernel);
-        # 'delta' runs the compact-union O(dirty) rounds (fastest at low
-        # missing rates — the reference's run_MICE_low strategy on device)
+        # program); 'delta' runs the compact-union O(dirty) rounds (the
+        # reference's run_MICE_low strategy on device)
         from .mice.device_round import run_mice_device, run_mice_device_delta
 
         with timer.phase("mice_device"):
@@ -49,8 +47,7 @@ def cmd_impute(args):
                     t, iters=args.iters, noise=not args.no_noise)
             else:
                 out = run_mice_device(
-                    t, iters=args.iters, noise=not args.no_noise,
-                    kernel="pallas_fused" if args.mode == "fused" else "auto")
+                    t, iters=args.iters, noise=not args.no_noise)
     else:
         runner = {"baseline": run_mice_baseline, "low": run_mice_low,
                   "high": run_mice_high}[args.mode]
@@ -265,84 +262,58 @@ def cmd_predict(args):
 
 
 def cmd_bench(args):
-    """The BASELINE.json configs (BASELINE.md)."""
+    """The BASELINE.json aggregation configs (BASELINE.md), through the
+    public entry points: milliseconds per call (median of 10 calls after
+    one warm-up call) and rows/s, with the device they ran on."""
     import time
 
     import jax
-    import jax.numpy as jnp
 
     from . import FeatureSchema
-    from .ring.kernels.sigma_pallas import sigma_pallas
-    from .ring.sum import masked_sigma, sum_to_nb_agg_grouped
+    from .ring.sum import sum_to_nb_agg_grouped, sum_to_triple
 
     rng = np.random.default_rng(0)
-    results = {}
+    configs = {
+        # name: (rows, schema, with weights, groups)
+        "sum_to_triple_4_0": (4 << 20, FeatureSchema(num_cols=4), False, 0),
+        "sum_to_triple_4_2": (
+            8 << 20, FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2),
+            True, 0),
+        "nb_grouped": (
+            8 << 20, FeatureSchema(num_cols=8,
+                                   cat_keys=(tuple(range(16)),) * 4),
+            False, 8),
+    }
+    dev = jax.devices()[0]
+    results = {"device": {"platform": dev.platform, "kind": dev.device_kind,
+                          "count": len(jax.devices())}}
+    for name, (n, schema, weighted, groups) in configs.items():
+        if args.config not in (name, "all"):
+            continue
+        x = jax.device_put(
+            rng.normal(size=(schema.num_cols, n)).astype(np.float32))
+        c = jax.device_put(rng.integers(
+            0, max(schema.cat_sizes, default=1),
+            size=(schema.cat_cols, n)).astype(np.int32))
+        w = (jax.device_put((rng.random(n) > 0.2).astype(np.float32))
+             if weighted else None)
+        if groups:
+            g = jax.device_put(rng.integers(0, groups, n).astype(np.int32))
 
-    def slope_time(loop_fn, lo=8, hi=64):
-        np.asarray(loop_fn(lo))
-        np.asarray(loop_fn(hi))
-        t0 = time.perf_counter(); np.asarray(loop_fn(hi)); d2 = time.perf_counter() - t0
-        t0 = time.perf_counter(); np.asarray(loop_fn(lo)); d1 = time.perf_counter() - t0
-        return (d2 - d1) / (hi - lo)
-
-    if args.config in ("sum_to_triple_4_0", "all"):
-        n = 1_048_576 * 4
-        schema = FeatureSchema(num_cols=4)
-        x = jax.device_put(rng.normal(size=(4, n)).astype(np.float32))
-        import functools
-
-        @functools.partial(jax.jit, static_argnames=("iters",))
-        def loop(iters: int):
-            def body(i, acc):
-                s = masked_sigma(x * (1 + 1e-9 * i), None, None,
-                                 schema=schema)
-                return acc + s
-            return jax.lax.fori_loop(0, iters, body,
-                                     jnp.zeros((5, 5), jnp.float32))
-        per = slope_time(loop)
-        results["sum_to_triple_4_0@4M"] = {"ms": per * 1e3,
-                                           "rows_per_s": n / per}
-
-    if args.config in ("nb_grouped", "all"):
-        n = 1_048_576 * 8
-        schema = FeatureSchema(
-            num_cols=8, cat_keys=tuple(tuple(range(16)) for _ in range(4)))
-        x = jax.device_put(rng.normal(size=(8, n)).astype(np.float32))
-        c = jax.device_put(rng.integers(0, 16, size=(4, n)).astype(np.int32))
-        g = jax.device_put(rng.integers(0, 8, size=(n,)).astype(np.int32))
-        import functools
-
-        @functools.partial(jax.jit, static_argnames=("iters",))
-        def loop(iters: int):
-            def body(i, acc):
-                agg = sum_to_nb_agg_grouped(
-                    x * (1 + 1e-9 * i), c, g, schema=schema, num_groups=8)
-                return acc + agg.n.sum()
-            return jax.lax.fori_loop(0, iters, body, jnp.float32(0))
-        per = slope_time(loop, 4, 16)
-        results["sum_to_nb_agg_8_4_grouped@8M"] = {
-            "ms": per * 1e3, "rows_per_s": n / per}
-
-    if args.config in ("sum_to_triple_4_2", "all"):
-        n = 5 * 2048 * 819
-        schema = FeatureSchema(
-            num_cols=4, cat_keys=(tuple(range(8)), tuple(range(8))))
-        x = jax.device_put(rng.normal(size=(4, n)).astype(np.float32))
-        c = jax.device_put(rng.integers(0, 8, size=(2, n)).astype(np.int32))
-        w = jax.device_put((rng.random(n) > 0.2).astype(np.float32))
-        import functools
-
-        @functools.partial(jax.jit, static_argnames=("iters",))
-        def loop(iters: int):
-            def body(i, acc):
-                s = sigma_pallas(x, c, w + 1e-9 * i, schema=schema)
-                return acc + s
-            return jax.lax.fori_loop(0, iters, body,
-                                     jnp.zeros((21, 21), jnp.float32))
-        per = slope_time(loop)
-        results["sum_to_triple_4_2_masked@8.4M"] = {
-            "ms": per * 1e3, "rows_per_s": n / per}
-
+            def call():
+                return sum_to_nb_agg_grouped(x, c, g, schema=schema,
+                                             num_groups=groups)
+        else:
+            def call():
+                return sum_to_triple(x, c, w, schema=schema)
+        jax.block_until_ready(call())
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            jax.block_until_ready(call())
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        results[name] = {"rows": n, "ms": ms, "rows_per_s": n / ms * 1e3}
     print(json.dumps(results, indent=2))
 
 
@@ -351,9 +322,8 @@ def main(argv=None):
     enable_compilation_cache()
     ap = argparse.ArgumentParser(prog="duckdb_imputation_tpu")
     ap.add_argument("--platform", default=None,
-                    help="force a jax platform (e.g. cpu, tpu). Needed on "
-                         "hosts that pin a platform at the runtime level "
-                         "where the JAX_PLATFORMS env var is ignored")
+                    help="force a jax platform (e.g. cpu, gpu) instead of "
+                         "JAX's default choice")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("impute", help="MICE-impute a CSV")
@@ -361,19 +331,14 @@ def main(argv=None):
     p.add_argument("--out", default="imputed.csv")
     p.add_argument("--mode",
                    choices=["baseline", "low", "high", "stream", "device",
-                            "fused", "delta"],
+                            "delta"],
                    default="low",
                    help="stream = out-of-core: chunked two-pass streaming "
                         "aggregation + delta rounds over the dirty cache; "
                         "the file is never resident. device = the whole "
-                        "loop as ONE dispatch (single-chip production "
-                        "path); fused = device loop via the fused "
-                        "impute+aggregate kernel (2 table passes/round; "
-                        "in-kernel noise needs the v3 layout — schemas "
-                        "that dispatch the v2 fused layout fall back to "
-                        "the unfused device loop unless --no-noise); "
-                        "delta = single-dispatch compact-union O(dirty) "
-                        "rounds (fastest at low missing rates)")
+                        "loop as ONE dispatch (single-device production "
+                        "path); delta = single-dispatch compact-union "
+                        "O(dirty) rounds (for low missing rates)")
     p.add_argument("--engine", choices=["host", "device"], default="host",
                    help="stream mode rounds: host = f64 GD parity path; "
                         "device = compact-union device delta loop (every "
@@ -422,7 +387,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_predict)
 
-    p = sub.add_parser("bench", help="run benchmark configs")
+    p = sub.add_parser("bench", help="time the aggregation configs")
     p.add_argument("--config", default="all",
                    choices=["all", "sum_to_triple_4_0", "sum_to_triple_4_2",
                             "nb_grouped"])

@@ -2,7 +2,7 @@
 
 The host-driven drivers (baseline/low/high) mirror the reference's
 client↔engine round trips (imputation_base.cpp: one SQL query per phase).
-On TPU every dispatch costs host latency, so the production path fuses the
+Every dispatch costs host latency, so the production path fuses the
 ENTIRE round — for every null column: masked cofactor aggregation → train →
 batched predict → masked write-back — into one compiled program
 (`mice_round_device`), and `run_mice_device` runs all rounds inside a single
@@ -11,11 +11,10 @@ lax.fori_loop: the whole MICE loop is ONE dispatch.
 COLUMNAR CARRY: inside the loops the table is a TUPLE of per-column [n]
 arrays, not a stacked [d, n] block (SURVEY §7.1's "pytree of device arrays,
 one per column", taken literally). A stacked block in a lax loop carry
-makes every single-column write-back a dynamic-update-slice that XLA
-cannot keep in place — measured 70 GB/s vs 658 GB/s for the per-column
-carry at 100M rows. The Pallas aggregation kernel takes the tuples
-directly as per-column refs (sigma_pallas_fast2_cols), so the stacked
-block never exists anywhere in the round.
+makes every single-column write-back a dynamic-update-slice of the whole
+block, which XLA cannot always keep in place. The Gram kernel
+(ring/kernels/sigma_triton.py) reads the tuples in place; the XLA
+aggregation stacks them first.
 
 Training inside jit:
   * continuous columns: a direct normal-equations lstsq on the P×P sigma
@@ -46,7 +45,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..schema import FeatureSchema
-from ..ring.sum import _stack_cols, class_argmax, linear_predict, masked_sigma
+from ..backend import resolve_kernel
+from ..ring.sum import aggregate_sigma, class_argmax, linear_predict
 from ..models.device import linreg_solve_device, linreg_train_device
 from ..table.table import Table
 
@@ -55,7 +55,7 @@ def _row_noise(key, gidx):
     """Standard normals keyed by GLOBAL row index — counter-based: each
     row's draw is a pure function of (key, global index), so stochastic
     MICE results are identical for any device count, shard layout, or
-    predict chunking. TPU-native replacement for the reference's
+    predict chunking. Replacement for the reference's
     /dev/urandom-seeded Box-Muller stream (regression.cpp:377-395,493-504),
     which is not reproducible at all."""
     return jax.vmap(
@@ -87,14 +87,18 @@ def _lda_device(sigma: jax.Array, schema: FeatureSchema, label: int,
     m = len(keep) - 1
     cov = sig[1:, 1:]
     mean_c = sums[:, 1:] / cnt[:, None]                      # [C, m]
-    cov = cov - jnp.einsum("ci,cj->ij", sums[:, 1:] / jnp.sqrt(cnt)[:, None],
-                           sums[:, 1:] / jnp.sqrt(cnt)[:, None])
-    mu = jnp.trace(cov) / m
-    cov = cov * (1.0 - shrinkage) + shrinkage * mu * jnp.eye(m)
-    cov = cov / n_total
-    w = jnp.linalg.lstsq(cov, mean_c.T)[0]                   # [m, C]
-    intercept = (-0.5 * jnp.einsum("cm,mc->c", mean_c, w)
-                 + jnp.log(counts / n_total))
+    # full-f32 products: the scatter is a difference of large sums, and a
+    # GPU f32 dot at default precision rounds its inputs to TF32
+    with jax.default_matmul_precision("highest"):
+        cov = cov - jnp.einsum("ci,cj->ij",
+                               sums[:, 1:] / jnp.sqrt(cnt)[:, None],
+                               sums[:, 1:] / jnp.sqrt(cnt)[:, None])
+        mu = jnp.trace(cov) / m
+        cov = cov * (1.0 - shrinkage) + shrinkage * mu * jnp.eye(m)
+        cov = cov / n_total
+        w = jnp.linalg.lstsq(cov, mean_c.T)[0]               # [m, C]
+        intercept = (-0.5 * jnp.einsum("cm,mc->c", mean_c, w)
+                     + jnp.log(counts / n_total))
     return w, intercept, keep
 
 
@@ -124,9 +128,9 @@ def _round_columns(x_cols, code_cols, num_null, cat_null, *,
 
     trainer: 'solve' (default) — ONE lstsq on the P×P sigma per column;
     'gd' — the reference's sequential GD (regression.cpp:157-238) as a
-    lax.while_loop, kept for iteration-parity studies. On TPU the GD path
-    is pure dispatch latency (hundreds of dependent tiny matvecs), so the
-    direct solve is the production trainer."""
+    lax.while_loop, kept for iteration-parity studies. The GD path is
+    hundreds of dependent tiny matvecs, so the direct solve is the
+    production trainer."""
     x_cols = tuple(x_cols)
     code_cols = tuple(code_cols)
     for col in cat_cols_to_impute:
@@ -151,7 +155,7 @@ def _round_columns(x_cols, code_cols, num_null, cat_null, *,
         nkey = noise_key_for(col)
         if nkey is not None:
             theta_full = coeff.at[col + 1].set(-1.0)
-            var = (theta_full @ sigma @ theta_full
+            var = (_quad_form(theta_full, sigma)
                    / jnp.maximum(sigma[0, 0], 1.0))
             std = jnp.sqrt(jnp.maximum(var, 0.0))
             gidx = row_offset + jnp.arange(pred.shape[0])
@@ -163,59 +167,27 @@ def _round_columns(x_cols, code_cols, num_null, cat_null, *,
     return x_cols, code_cols
 
 
-def _make_agg(kernel: str, schema: FeatureSchema):
-    """(x_cols, code_cols, null_row) → masked sigma via the chosen kernel,
-    fed by the per-column tuples directly (no stacking on the Pallas
-    path)."""
-    if kernel == "pallas_fast":
-        from ..ring.kernels.sigma_pallas import sigma_pallas_fast_cols_padded
+def _quad_form(theta, sigma):
+    """θᵀΣθ in full f32: the residual variance θᵀΣθ/N is a small
+    difference of large sums, which TF32 inputs would swamp."""
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.dot(theta, jnp.dot(sigma, theta, precision=hi), precision=hi)
 
-        def agg(x_cols, code_cols, null_row):
-            return sigma_pallas_fast_cols_padded(
-                x_cols, code_cols, 1.0 - null_row.astype(jnp.float32),
-                schema=schema)
-    else:
-        def agg(x_cols, code_cols, null_row):
-            x, c = _stack_cols(x_cols, code_cols, schema)
-            return masked_sigma(x, c, 1.0 - null_row.astype(jnp.float32),
-                                schema=schema)
+
+def _make_agg(kernel: str, schema: FeatureSchema, interpret: bool = False):
+    """(x_cols, code_cols, null_row) → masked sigma via the resolved
+    kernel ('xla' | 'triton'), fed by the per-column tuples."""
+    def agg(x_cols, code_cols, null_row):
+        return aggregate_sigma(x_cols, code_cols,
+                               1.0 - null_row.astype(jnp.float32),
+                               schema=schema, kernel=kernel,
+                               interpret=interpret)
     return agg
 
 
 def _to_cols(x_num, codes, schema: FeatureSchema):
     return (tuple(x_num[j] for j in range(schema.num_cols)),
             tuple(codes[j] for j in range(schema.cat_cols)))
-
-
-def _kernel_block(kernel: str, schema: FeatureSchema,
-                  chunk_cols: int = 8192) -> int:
-    """Row-count granule of the chosen aggregation kernel (1 for XLA)."""
-    if kernel == "pallas_fused":
-        from ..ring.kernels.sigma_fused import fused_block
-        return fused_block(schema, chunk_cols)
-    if kernel != "pallas_fast":
-        return 1
-    from ..ring.kernels.sigma_pallas import fast_cols_block
-    return fast_cols_block(schema)
-
-
-def _kernel_pad(kernel: str, schema: FeatureSchema, n: int) -> int:
-    """Row padding that makes every per-round aggregation a no-pad kernel
-    call. jnp.pad inside the round loop is NOT loop-invariant-hoisted by
-    XLA (the padded operand is the loop carry), so without this each
-    aggregation pays a full-table copy."""
-    return (-n) % _kernel_block(kernel, schema)
-
-
-def _pad_cols_nulls(x_cols, code_cols, num_null, cat_null, pad):
-    """Zero-pad the column tuples and TRUE-pad the null masks (pad rows
-    are 'null': weight 0 in every aggregate, overwritten by predictions,
-    sliced off at exit)."""
-    x_cols = tuple(jnp.pad(a, (0, pad)) for a in x_cols)
-    code_cols = tuple(jnp.pad(a, (0, pad)) for a in code_cols)
-    num_null = jnp.pad(num_null, ((0, 0), (0, pad)), constant_values=True)
-    cat_null = jnp.pad(cat_null, ((0, 0), (0, pad)), constant_values=True)
-    return x_cols, code_cols, num_null, cat_null
 
 
 def _from_cols(x_cols, code_cols, schema: FeatureSchema, n):
@@ -229,17 +201,18 @@ def _from_cols(x_cols, code_cols, schema: FeatureSchema, n):
 @functools.partial(
     jax.jit,
     static_argnames=("schema", "num_cols_to_impute", "cat_cols_to_impute",
-                     "gd_iters", "lda_shrinkage", "noise", "kernel", "trainer"))
+                     "gd_iters", "lda_shrinkage", "noise", "kernel", "trainer",
+                     "interpret"))
 def mice_round_device(x_num, codes, num_null, cat_null, key, *,
                       schema: FeatureSchema,
                       num_cols_to_impute: tuple[int, ...],
                       cat_cols_to_impute: tuple[int, ...],
                       gd_iters: int = 500, lda_shrinkage: float = 0.001,
                       noise: bool = False, kernel: str = "xla",
-                      trainer: str = "solve"):
+                      trainer: str = "solve", interpret: bool = False):
     """One MICE round, entirely on device. Arrays are features-first.
-    Returns (x_num, codes, key). kernel='pallas_fast' uses the
-    split-precision MXU kernel (TPU; masks here are binary)."""
+    Returns (x_num, codes, key). kernel: 'xla' | 'triton' (the Gram
+    kernel; `interpret` runs it in the Pallas interpreter)."""
     noise_key_for = ((lambda col: jax.random.fold_in(key, col)) if noise
                      else (lambda col: None))
     x_cols, code_cols = _to_cols(x_num, codes, schema)
@@ -247,7 +220,7 @@ def mice_round_device(x_num, codes, num_null, cat_null, key, *,
         x_cols, code_cols, num_null, cat_null, schema=schema,
         num_cols_to_impute=num_cols_to_impute,
         cat_cols_to_impute=cat_cols_to_impute,
-        agg=_make_agg(kernel, schema), gd_iters=gd_iters,
+        agg=_make_agg(kernel, schema, interpret), gd_iters=gd_iters,
         lda_shrinkage=lda_shrinkage, noise_key_for=noise_key_for,
         trainer=trainer)
     x_num, codes = _from_cols(x_cols, code_cols, schema, x_num.shape[-1])
@@ -257,7 +230,8 @@ def mice_round_device(x_num, codes, num_null, cat_null, key, *,
 @functools.partial(
     jax.jit,
     static_argnames=("schema", "num_cols_to_impute", "cat_cols_to_impute",
-                     "gd_iters", "lda_shrinkage", "noise", "kernel", "trainer"),
+                     "gd_iters", "lda_shrinkage", "noise", "kernel", "trainer",
+                     "interpret"),
     donate_argnames=("x_num", "codes"))
 def mice_loop_device(x_num, codes, num_null, cat_null, key, *,
                      schema: FeatureSchema,
@@ -265,13 +239,13 @@ def mice_loop_device(x_num, codes, num_null, cat_null, key, *,
                      cat_cols_to_impute: tuple[int, ...],
                      iters, gd_iters: int = 500,
                      lda_shrinkage: float = 0.001, noise: bool = False,
-                     kernel: str = "xla", trainer: str = "solve"):
+                     kernel: str = "xla", trainer: str = "solve",
+                     interpret: bool = False):
     """The WHOLE MICE loop in one dispatch: lax.fori_loop over rounds with
     the columnar tuple carry (un/re-stacked once at the jit boundary).
     `iters` may be a traced scalar — one compile serves any round count."""
-    agg = _make_agg(kernel, schema)
+    agg = _make_agg(kernel, schema, interpret)
     n = num_null.shape[-1]
-    pad = _kernel_pad(kernel, schema, n)
 
     def body(r, carry):
         x_cols, code_cols, k = carry
@@ -285,153 +259,19 @@ def mice_loop_device(x_num, codes, num_null, cat_null, key, *,
             noise_key_for=noise_key_for, trainer=trainer)
         return x_cols, code_cols, jax.random.fold_in(k, 2 ** 20)
 
-    x_cols, code_cols = _to_cols(x_num, codes, schema)
-    if pad:
-        x_cols, code_cols, num_null, cat_null = _pad_cols_nulls(
-            x_cols, code_cols, num_null, cat_null, pad)
     x_cols, code_cols, key = jax.lax.fori_loop(
-        0, iters, body, (x_cols, code_cols, key))
-    if pad:
-        x_cols = tuple(a[:n] for a in x_cols)
-        code_cols = tuple(a[:n] for a in code_cols)
+        0, iters, body, (*_to_cols(x_num, codes, schema), key))
     x_num, codes = _from_cols(x_cols, code_cols, schema, n)
     return x_num, codes, key
-
-
-def _fused_round_body(x_cols, code_cols, sigma, r, *, schema: FeatureSchema,
-                      steps, null_of, lda_shrinkage: float, chunk_cols: int,
-                      seed_base=None, w_valid=None,
-                      combine=lambda s: s, block_off=None,
-                      interpret: bool = False):
-    """One fused-MICE round, shared by the single-device and sharded loops:
-    per column, train on the (combined) sigma, then ONE fused
-    impute+aggregate Pallas pass that writes the column and emits the NEXT
-    column's shard-local sigma. `combine` merges partial sigmas — identity
-    single-device, `psum` over the data axis in the sharded loop, placed
-    exactly where the reference merges per-thread SumStates
-    (sum_state.cpp:10-114). `null_of(kind, col) -> f32[n]` (1 = impute);
-    `w_valid` f32[n] folds zero-weight row padding into every aggregation
-    weight; `seed_base` int32 enables in-kernel stochastic noise;
-    `block_off` is this shard's global block offset for the noise stream.
-    Returns (x_cols, code_cols, sigma) with sigma already combined."""
-    from ..ring.kernels.sigma_fused import fused_impute_aggregate, pack_lhs
-
-    for i, (kind, col) in enumerate(steps):
-        nk, nc = steps[(i + 1) % len(steps)]
-        w_next = 1.0 - null_of(nk, nc)
-        if w_valid is not None:
-            w_next = w_next * w_valid
-        if kind == "cat":
-            n_classes = schema.cat_sizes[col]
-            w, icpt, keep = _lda_device(sigma, schema, col, lda_shrinkage)
-            lhs = pack_lhs(_w_full(w, keep, schema), icpt,
-                           schema=schema, n_rows=n_classes)
-            new, sigma = fused_impute_aggregate(
-                x_cols, code_cols, null_of(kind, col), w_next, lhs,
-                schema=schema, kind="cat", imp_col=col,
-                n_rows=n_classes, chunk_cols=chunk_cols,
-                interpret=interpret)
-            code_cols = (code_cols[:col] + (new,)
-                         + code_cols[col + 1:])
-        else:
-            coeff = linreg_solve_device(sigma, label=col + 1)
-            theta = coeff * (1.0 - jax.nn.one_hot(
-                col + 1, coeff.shape[0], dtype=coeff.dtype))
-            lhs = pack_lhs(theta[:, None], jnp.zeros((1,)),
-                           schema=schema, n_rows=1)
-            seed = std = None
-            if seed_base is not None:
-                theta_full = coeff.at[col + 1].set(-1.0)
-                var = (theta_full @ sigma @ theta_full
-                       / jnp.maximum(sigma[0, 0], 1.0))
-                std = jnp.sqrt(jnp.maximum(var, 0.0))
-                # integer hash of (key, round, column) — NOT threefry:
-                # a scalar fold_in/randint inside the round loop was
-                # measured taking ~200 s PER CALL on this TPU runtime
-                # (the kernel's own PRNG does the real bit mixing)
-                seed = (seed_base
-                        ^ (r * jnp.int32(-1640531527))   # 0x9E3779B1
-                        ^ jnp.int32(col * 40503 + 19))
-            new, sigma = fused_impute_aggregate(
-                x_cols, code_cols, null_of(kind, col), w_next, lhs,
-                schema=schema, kind="num", imp_col=col, n_rows=1,
-                chunk_cols=chunk_cols, noise_seed=seed, noise_std=std,
-                noise_block_off=block_off, interpret=interpret)
-            x_cols = x_cols[:col] + (new,) + x_cols[col + 1:]
-        sigma = combine(sigma)
-    return x_cols, code_cols, sigma
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("schema", "num_cols_to_impute", "cat_cols_to_impute",
-                     "lda_shrinkage", "chunk_cols", "noise"),
-    donate_argnames=("x_num", "codes"))
-def mice_loop_device_fused(x_num, codes, num_null, cat_null, key=None, *,
-                           schema: FeatureSchema,
-                           num_cols_to_impute: tuple[int, ...],
-                           cat_cols_to_impute: tuple[int, ...],
-                           iters, lda_shrinkage: float = 0.001,
-                           chunk_cols: int = 8192, noise: bool = False):
-    """The MICE loop as a chain of FUSED impute+aggregate passes
-    (ring.kernels.sigma_fused): after one plain aggregation for the first
-    column, every kernel call imputes the previous column AND produces the
-    next column's masked sigma in the same pass over the table — 2 passes
-    per round at 2 null columns instead of 4 (aggregate + predict each).
-    Trainer is the direct solve. Semantics otherwise identical to
-    mice_loop_device(kernel='pallas_fast', trainer='solve') up to the
-    scoring dot's ~1e-7 relative split-precision error.
-
-    noise=True: stochastic-regression imputation with the noise drawn
-    IN-KERNEL (Box-Muller from the Pallas PRNG, seeded per (round,
-    column) from `key` — reproducible given the seed, but a DIFFERENT
-    stream than the unfused loop's global-row-index counter draws)."""
-    from ..ring.kernels.sigma_fused import fused_block
-    from ..ring.kernels.sigma_pallas import sigma_pallas_fast_cols_padded
-
-    steps = ([("cat", j) for j in cat_cols_to_impute]
-             + [("num", j) for j in num_cols_to_impute])
-    n = num_null.shape[-1]
-    pad = (-n) % fused_block(schema, chunk_cols)
-    x_cols, code_cols = _to_cols(x_num, codes, schema)
-    if pad:
-        x_cols, code_cols, num_null, cat_null = _pad_cols_nulls(
-            x_cols, code_cols, num_null, cat_null, pad)
-
-    def null_of(kind, col):
-        return (cat_null if kind == "cat" else num_null)[col] \
-            .astype(jnp.float32)
-
-    sigma0 = sigma_pallas_fast_cols_padded(
-        x_cols, code_cols, 1.0 - null_of(*steps[0]), schema=schema,
-        chunk_cols=chunk_cols)
-
-    if noise and key is None:
-        raise ValueError("noise=True requires a PRNG key")
-    seed_base = (jnp.asarray(jax.random.key_data(key), jnp.uint32)[-1]
-                 .astype(jnp.int32) if noise else None)
-
-    def body(r, carry):
-        x_cols, code_cols, sigma = carry
-        return _fused_round_body(
-            x_cols, code_cols, sigma, r, schema=schema, steps=steps,
-            null_of=null_of, lda_shrinkage=lda_shrinkage,
-            chunk_cols=chunk_cols, seed_base=seed_base)
-
-    x_cols, code_cols, _ = jax.lax.fori_loop(
-        0, iters, body, (x_cols, code_cols, sigma0))
-    if pad:
-        x_cols = tuple(a[:n] for a in x_cols)
-        code_cols = tuple(a[:n] for a in code_cols)
-    return _from_cols(x_cols, code_cols, schema, n)
 
 
 def run_mice_device(t: Table, num_null_cols=None, cat_null_cols=None,
                     iters: int = 5, *, gd_iters: int = 500,
                     lda_shrinkage: float = 0.001, noise: bool = False,
                     seed: int = 0, kernel: str = "auto",
-                    trainer: str = "solve") -> Table:
-    """Host wrapper: mean/mode init, then the single-dispatch device loop."""
+                    trainer: str = "solve", interpret: bool = False) -> Table:
+    """Host wrapper: mean/mode init, then the single-dispatch device loop.
+    kernel: 'auto' | 'xla' | 'triton' (backend.resolve_kernel)."""
     import dataclasses
 
     from .partition import init_fill
@@ -446,58 +286,22 @@ def run_mice_device(t: Table, num_null_cols=None, cat_null_cols=None,
         cat_null_cols = tuple(
             j for j in range(schema.cat_cols)
             if bool(np.asarray(t.cat_null[j]).any()))
-    if kernel == "auto":
-        kernel = ("pallas_fast"
-                  if (jax.default_backend() not in ("cpu",)
-                      and t.n_rows >= (1 << 20)) else "xla")
-    if kernel == "pallas_fused":
-        if trainer != "solve":
-            raise ValueError("the fused impute+aggregate loop is "
-                             "solve-only; use kernel='pallas_fast' for GD")
-        if noise:
-            from ..ring.kernels.sigma_pallas import _fast_cols_use_v3
-            if not _fast_cols_use_v3(schema):
-                # in-kernel stochastic noise exists only in the v3 fused
-                # layout; for v2-dispatch schemas fall back to the unfused
-                # loop (same distribution, counter-based stream) instead
-                # of crashing at jit-trace time (round-4 advisor, medium)
-                import warnings
-                warnings.warn(
-                    "this schema dispatches the v2 fused layout, which has "
-                    "no in-kernel noise; falling back to the unfused "
-                    "pallas_fast loop for noise=True", stacklevel=2)
-                kernel = "pallas_fast"
-    if kernel == "pallas_fused":
-        x, c = mice_loop_device_fused(
-            t.num_data, t.cat_codes, t.num_null, t.cat_null,
-            jax.random.PRNGKey(seed) if noise else None,
-            schema=schema, num_cols_to_impute=tuple(num_null_cols),
-            cat_cols_to_impute=tuple(cat_null_cols), iters=iters,
-            lda_shrinkage=lda_shrinkage, noise=noise)
-        return dataclasses.replace(t, num_data=x, cat_codes=c)
+    kernel = resolve_kernel(kernel, schema.sigma_size, interpret=interpret)
     x, c, _ = mice_loop_device(
         t.num_data, t.cat_codes, t.num_null, t.cat_null,
         jax.random.PRNGKey(seed), schema=schema,
         num_cols_to_impute=tuple(num_null_cols),
         cat_cols_to_impute=tuple(cat_null_cols), iters=iters,
         gd_iters=gd_iters, lda_shrinkage=lda_shrinkage, noise=noise,
-        kernel=kernel, trainer=trainer)
+        kernel=kernel, trainer=trainer, interpret=interpret)
     return dataclasses.replace(t, num_data=x, cat_codes=c)
 
-
-
-def _make_delta_agg(kernel: str, schema: FeatureSchema):
+def _make_delta_agg(kernel: str, schema: FeatureSchema,
+                    interpret: bool = False):
     """(x_cols, code_cols, weights) → sigma for the delta loops (weights
     are the validity mask of the gathered dirty rows)."""
-    if kernel == "pallas_fast":
-        from ..ring.kernels.sigma_pallas import sigma_pallas_fast_cols_padded
-        return functools.partial(sigma_pallas_fast_cols_padded,
-                                 schema=schema)
-
-    def agg(x_cols, code_cols, weights):
-        x, c = _stack_cols(x_cols, code_cols, schema)
-        return masked_sigma(x, c, weights, schema=schema)
-    return agg
+    return functools.partial(aggregate_sigma, schema=schema, kernel=kernel,
+                             interpret=interpret)
 
 
 def _delta_round_columns(xc, cc, k, full, nn_c, cn_c, w_valid, gidx, *,
@@ -510,18 +314,14 @@ def _delta_round_columns(xc, cc, k, full, nn_c, cn_c, w_valid, gidx, *,
     (imputation_low.cpp:42-110 algebra), shared by the single-device and
     sharded loops.
 
-    The round-4 implementation gathered each column's dirty rows from the
-    FULL table every round (2 gathers + 1 scatter of ~10^5 random indices
-    per column per round) — measured 23.6 ms/round at 10M rows / 1% dirty,
-    9x SLOWER than the 2.6 ms fused full rescan: TPU random gather/scatter
-    at full-table scale dominates everything. But the dirty-row set is
-    STATIC (null positions never move), so the union of all dirty rows is
-    gathered ONCE into a compact [K] sub-table before the rounds; every
-    delta aggregation is then a sequential masked kernel pass over K rows
-    (weights = this column's compact dirty mask), predictions and
-    write-backs stay compact, and the full table is touched again only by
-    the one scatter per column at exit. This is the TPU-native analogue of
-    the reference's physical t_complete_<col> partition tables
+    The dirty-row set is STATIC (null positions never move), so the union
+    of all dirty rows is gathered ONCE into a compact [K] sub-table before
+    the rounds instead of gathering each column's dirty rows from the full
+    table every round; every delta aggregation is then a sequential masked
+    pass over K rows (weights = this column's compact dirty mask),
+    predictions and write-backs stay compact, and the full table is
+    touched again only by the one scatter per column at exit. This is the
+    analogue of the reference's physical t_complete_<col> partition tables
     (partition.cpp:77-237) — materialize the dirty partition once, not per
     round.
 
@@ -561,7 +361,7 @@ def _delta_round_columns(xc, cc, k, full, nn_c, cn_c, w_valid, gidx, *,
         if noise:
             nkey = jax.random.fold_in(k, col)
             theta_full = coeff.at[col + 1].set(-1.0)
-            var = (theta_full @ train @ theta_full
+            var = (_quad_form(theta_full, train)
                    / jnp.maximum(train[0, 0], 1.0))
             pred = pred + jnp.sqrt(jnp.maximum(var, 0.0)) \
                 * _row_noise(nkey, gidx)
@@ -576,7 +376,7 @@ def _delta_round_columns(xc, cc, k, full, nn_c, cn_c, w_valid, gidx, *,
     jax.jit,
     static_argnames=("schema", "num_cols_to_impute", "cat_cols_to_impute",
                      "gd_iters", "lda_shrinkage", "noise", "kernel",
-                     "trainer"),
+                     "trainer", "interpret"),
     donate_argnames=("x_num", "codes"))
 def mice_loop_device_delta(x_num, codes, num_null, cat_null, key,
                            union_idx, union_valid, full_sigma=None, *,
@@ -586,7 +386,8 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, key,
                            iters, gd_iters: int = 500,
                            lda_shrinkage: float = 0.001,
                            noise: bool = False, kernel: str = "xla",
-                           trainer: str = "solve", round_offset=0):
+                           trainer: str = "solve", interpret: bool = False,
+                           round_offset=0):
     """The low-missing delta strategy (imputation_low.cpp) fused on-device:
     ONE full aggregation up front, ONE gather of the union-of-dirty-rows
     compact sub-table, then every round runs entirely compact:
@@ -597,9 +398,8 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, key,
 
     and ONE scatter per column writes the imputed cells back at exit.
     union_idx i64[K] (pad-aliased to row 0), union_valid f32[K].
-    Work per round: O(K = |union dirty|), sequential-access only — see
-    _delta_round_columns for why the per-round gather variant lost to the
-    full rescan.
+    Work per round: O(K = |union dirty|), sequential-access only (see
+    _delta_round_columns).
 
     full_sigma: optionally the [P, P] FULL-data sigma computed elsewhere
     (the out-of-core streaming pass — the table here may then be ONLY the
@@ -607,7 +407,7 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, key,
     algebra never references clean rows except through `full`).
     round_offset: global index of the first round (noise keys fold it, so
     checkpointed runs resume onto the identical stream)."""
-    agg = _make_delta_agg(kernel, schema)
+    agg = _make_delta_agg(kernel, schema, interpret)
     n = x_num.shape[-1] if schema.num_cols else codes.shape[-1]
     x_cols0, code_cols0 = _to_cols(x_num, codes, schema)
     full0 = (full_sigma if full_sigma is not None
@@ -648,10 +448,10 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, key,
     return x_num, codes, key
 
 
-def build_union_gather(dirty_idx_lists, blk: int = 1):
+def build_union_gather(dirty_idx_lists):
     """Union of per-column dirty-row index lists -> (union_idx i64[K_pad],
-    union_valid f32[K_pad]) with K_pad the next pow2 rounded up to the
-    kernel block `blk` (compile-count O(log n), no per-call kernel pad)."""
+    union_valid f32[K_pad]) with K_pad the next pow2 (compile-count
+    O(log n))."""
     if dirty_idx_lists:
         union = np.unique(np.concatenate(
             [np.asarray(ix, np.int64) for ix in dirty_idx_lists]))
@@ -659,7 +459,6 @@ def build_union_gather(dirty_idx_lists, blk: int = 1):
         union = np.zeros((0,), np.int64)
     size = max(len(union), 1)
     bucket = 1 << (size - 1).bit_length()
-    bucket = -(-bucket // blk) * blk
     idx = np.zeros(bucket, np.int64)
     idx[:len(union)] = union
     valid = (np.arange(bucket) < len(union)).astype(np.float32)
@@ -670,9 +469,11 @@ def run_mice_device_delta(t: Table, num_null_cols=None, cat_null_cols=None,
                           iters: int = 5, *, gd_iters: int = 500,
                           lda_shrinkage: float = 0.001, noise: bool = False,
                           seed: int = 0, kernel: str = "auto",
-                          trainer: str = "solve") -> Table:
+                          trainer: str = "solve",
+                          interpret: bool = False) -> Table:
     """Host wrapper for the compact delta loop: builds the union dirty-row
-    gather once, then a single dispatch runs every round."""
+    gather once, then a single dispatch runs every round.
+    kernel: 'auto' | 'xla' | 'triton' (backend.resolve_kernel)."""
     import dataclasses
 
     from .partition import build_partitions, init_fill
@@ -686,15 +487,10 @@ def run_mice_device_delta(t: Table, num_null_cols=None, cat_null_cols=None,
     if cat_null_cols is None:
         cat_null_cols = tuple(j for j in range(schema.cat_cols)
                               if len(parts.cat_dirty_idx[j]))
-    if kernel == "auto":
-        kernel = ("pallas_fast"
-                  if (jax.default_backend() not in ("cpu",)
-                      and t.n_rows >= (1 << 20)) else "xla")
-
-    blk = _kernel_block(kernel, schema)
+    kernel = resolve_kernel(kernel, schema.sigma_size, interpret=interpret)
     union_idx, union_valid = build_union_gather(
         [parts.num_dirty_idx[j] for j in num_null_cols]
-        + [parts.cat_dirty_idx[j] for j in cat_null_cols], blk)
+        + [parts.cat_dirty_idx[j] for j in cat_null_cols])
 
     x, c, _ = mice_loop_device_delta(
         t.num_data, t.cat_codes, t.num_null, t.cat_null,
@@ -702,5 +498,5 @@ def run_mice_device_delta(t: Table, num_null_cols=None, cat_null_cols=None,
         schema=schema, num_cols_to_impute=tuple(num_null_cols),
         cat_cols_to_impute=tuple(cat_null_cols), iters=iters,
         gd_iters=gd_iters, lda_shrinkage=lda_shrinkage, noise=noise,
-        kernel=kernel, trainer=trainer)
+        kernel=kernel, trainer=trainer, interpret=interpret)
     return dataclasses.replace(t, num_data=x, cat_codes=c)

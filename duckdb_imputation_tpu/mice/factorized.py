@@ -8,8 +8,8 @@ SURVEY.md §2 L4 "dead headers") on top of its factorized-join plan
 `sum_triple(multiply_triple(A, B))` (README.md:163-174): per-join-key
 triples on each side, ring product per key, ring sum over keys.
 
-TPU design: the per-key triples are grouped aggregates (one segment-sum
-pass per side) and the product-sum over keys collapses into MXU
+Design: the per-key triples are grouped aggregates (one segment-sum
+pass per side) and the product-sum over keys collapses into matrix
 contractions (ring.triple.factorized_join_sum). The complete dimension
 side is aggregated ONCE for the whole MICE run — each round/column only
 re-aggregates the fact side under that column's observed-mask, so the
@@ -113,7 +113,7 @@ def run_mice_factorized(fact: Table, fact_key, dim: Table, dim_key=None,
 
     def train_triple(num, codes, w):
         # grouped fact aggregate does host-side group prep; the contraction
-        # over keys is the jitted MXU bundle
+        # over keys is the jitted contraction bundle
         fg = grouped_aggregate(num, codes, fact_key, schema=fs,
                                num_groups=num_keys, weights=w)
         return fused_join(fg, dim_grouped)
@@ -173,7 +173,7 @@ def run_mice_star(fact: Table, fact_keys, dims, dim_keys=None,
     beyond what the reference's shared-key multiply chain can express
     (SURVEY.md §2 L4 dead headers; see ring/star.py for the algebra).
     Training triples come from `ring.star.star_join_triple`: O(fact rows)
-    segment-sums + MXU contractions per column, join never materialized.
+    segment-sums + matrix contractions per column, join never materialized.
 
     fact_keys: per dimension, i64[n_fact] FK codes.
     dims: list of complete dimension Tables; dim_keys[i] (optional) gives

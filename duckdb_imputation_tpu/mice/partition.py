@@ -9,7 +9,7 @@ The reference materializes physical partition tables:
   - `partition_inverse` (partition.cpp:295-549): the mirror for the
     high-missing regime keyed on n_not_nulls.
 
-On TPU the table is a pytree of device arrays, so partitions are mask
+Here the table is a pytree of device arrays, so partitions are mask
 predicates fused into the aggregation kernel; nothing is copied. For the
 delta aggregates (low/high regimes) we additionally precompute per-column
 dirty-row GATHERS (host, once — null positions never change) so a delta

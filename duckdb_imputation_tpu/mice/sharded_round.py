@@ -1,11 +1,11 @@
 """Sharded MICE — the full loop under one shard_map over the data axis.
 
 BASELINE config 5 is the full MICE loop over a 100M-row mixed table,
-multi-host. The single-chip fused loop (device_round.py) covers one chip;
+multi-host. The single-device loop (device_round.py) covers one device;
 this module scales it over a `jax.sharding.Mesh`:
 
-  * rows are sharded over the 'data' axis (hosts × chips — on a pod slice
-    the collective rides ICI within a slice, DCN across slices);
+  * rows are sharded over the 'data' axis (hosts × devices; the psum is
+    an all-reduce over whatever links the devices share);
   * each round, per null column: every device aggregates the masked sigma
     of ITS row shard and one `psum` combines them — the same
     update/combine contract as the reference's per-thread SumStates merged
@@ -40,6 +40,7 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from ..backend import resolve_kernel
 from ..schema import FeatureSchema
 from ..table.table import Table
 from .device_round import _from_cols, _make_agg, _round_columns, _to_cols
@@ -49,8 +50,7 @@ from .device_round import _from_cols, _make_agg, _round_columns, _to_cols
     jax.jit,
     static_argnames=("schema", "mesh", "num_cols_to_impute",
                      "cat_cols_to_impute", "gd_iters", "lda_shrinkage",
-                     "noise", "axis", "trainer", "kernel", "chunk_cols",
-                     "interpret"))
+                     "noise", "axis", "trainer", "kernel", "interpret"))
 def mice_loop_sharded(x_num, codes, num_null, cat_null, valid, key, *,
                       schema: FeatureSchema, mesh,
                       num_cols_to_impute: tuple[int, ...],
@@ -58,29 +58,16 @@ def mice_loop_sharded(x_num, codes, num_null, cat_null, valid, key, *,
                       iters, gd_iters: int = 500,
                       lda_shrinkage: float = 0.001, noise: bool = False,
                       axis: str = "data", trainer: str = "solve",
-                      kernel: str = "xla", chunk_cols: int = 8192,
-                      interpret: bool = False, round_offset=0):
+                      kernel: str = "xla", interpret: bool = False,
+                      round_offset=0):
     """The whole sharded MICE loop in one dispatch. Arrays features-first,
     row axis sharded over `axis`; `valid` is f32[n] 1/0 (zero-weight row
     padding). `iters` may be traced. Inside the shard the table is the
-    columnar tuple carry (see device_round module docstring);
-    kernel='pallas_fast' feeds the tuples straight into the per-column-ref
-    MXU kernel; kernel='pallas_fused' runs the flagship fused
-    impute+aggregate kernel per shard — each pass emits the shard-local
-    NEXT-column sigma, one psum combines them before the replicated solve
-    (the reference's SumStateCombine boundary, sum_state.cpp:10-114, as
-    the all-reduce), so the single-chip production kernel and the
-    multi-chip topology are the SAME path. `chunk_cols` is the fused
-    kernel's chunk width (shard-local rows must be a multiple of
-    pack·chunk_cols — run_mice_sharded pads)."""
-    if kernel == "pallas_fused":
-        return _mice_loop_sharded_fused(
-            x_num, codes, num_null, cat_null, valid, key, schema=schema,
-            mesh=mesh, num_cols_to_impute=num_cols_to_impute,
-            cat_cols_to_impute=cat_cols_to_impute, iters=iters,
-            lda_shrinkage=lda_shrinkage, noise=noise, axis=axis,
-            trainer=trainer, chunk_cols=chunk_cols, interpret=interpret,
-            round_offset=round_offset)
+    columnar tuple carry (see device_round module docstring); each device
+    aggregates its shard with `kernel` ('xla' | 'triton') and one psum
+    combines the partial sigmas before the replicated solve (the
+    reference's SumStateCombine boundary, sum_state.cpp:10-114, as the
+    all-reduce)."""
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -88,12 +75,12 @@ def mice_loop_sharded(x_num, codes, num_null, cat_null, valid, key, *,
                   P(None, axis), P(axis), P()),
         out_specs=(P(None, axis), P(None, axis)),
         # pallas_call outputs carry no varying-mesh-axes annotation, so the
-        # vma check rejects the Pallas kernels inside shard_map; the psum
+        # vma check rejects the Gram kernel inside shard_map; the psum
         # combine makes the sharding contract explicit regardless
         check_vma=False,
     )
     def local(x, c, nn, cn, val, k):
-        base_agg = _make_agg(kernel, schema)
+        base_agg = _make_agg(kernel, schema, interpret)
         invalid = val == 0.0
 
         def agg(x_cols, code_cols, null_row):
@@ -131,73 +118,6 @@ def mice_loop_sharded(x_num, codes, num_null, cat_null, valid, key, *,
     return local(x_num, codes, num_null, cat_null, valid, key)
 
 
-def _mice_loop_sharded_fused(x_num, codes, num_null, cat_null, valid, key,
-                             *, schema: FeatureSchema, mesh,
-                             num_cols_to_impute: tuple[int, ...],
-                             cat_cols_to_impute: tuple[int, ...],
-                             iters, lda_shrinkage: float, noise: bool,
-                             axis: str, trainer: str, chunk_cols: int,
-                             interpret: bool = False, round_offset=0):
-    """kernel='pallas_fused' body of mice_loop_sharded (round-4 verdict
-    ask #1): one plain shard-local aggregation + psum seeds sigma, then
-    every fused pass imputes the previous column on its shard AND emits
-    the shard-local next-column sigma, psum'd before the replicated
-    solve. Noise draws are keyed by GLOBAL block index (shard block
-    offset folded into the kernel seed), so for a fixed padded row count
-    and chunking the stochastic result is mesh-shape invariant."""
-    from ..ring.kernels.sigma_fused import fused_block
-    from ..ring.kernels.sigma_pallas import sigma_pallas_fast_cols_padded
-    from .device_round import _fused_round_body
-
-    if trainer != "solve":
-        raise ValueError("the fused impute+aggregate loop is solve-only; "
-                         "use kernel='pallas_fast' for GD")
-    steps = (tuple(("cat", j) for j in cat_cols_to_impute)
-             + tuple(("num", j) for j in num_cols_to_impute))
-    blk = fused_block(schema, chunk_cols)
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(None, axis), P(None, axis), P(None, axis),
-                  P(None, axis), P(axis), P()),
-        out_specs=(P(None, axis), P(None, axis)),
-        check_vma=False,   # Pallas outputs carry no vma (see above)
-    )
-    def local(x, c, nn, cn, val, k):
-        n_local = x.shape[-1] if schema.num_cols else c.shape[-1]
-        assert n_local % blk == 0, (n_local, blk)
-        x_cols, code_cols = _to_cols(x, c, schema)
-        combine = lambda s: jax.lax.psum(s, axis)
-        block_off = jax.lax.axis_index(axis) * (n_local // blk)
-
-        def null_of(kind, col):
-            return ((cn if kind == "cat" else nn)[col]
-                    .astype(jnp.float32))
-
-        w0 = (1.0 - null_of(*steps[0])) * val
-        sigma0 = combine(sigma_pallas_fast_cols_padded(
-            x_cols, code_cols, w0, schema=schema, chunk_cols=chunk_cols,
-            interpret=interpret))
-        seed_base = (jnp.asarray(jax.random.key_data(k), jnp.uint32)[-1]
-                     .astype(jnp.int32) if noise else None)
-
-        def body(r, carry):
-            x_cols, code_cols, sigma = carry
-            return _fused_round_body(
-                x_cols, code_cols, sigma, r, schema=schema, steps=steps,
-                null_of=null_of, lda_shrinkage=lda_shrinkage,
-                chunk_cols=chunk_cols, seed_base=seed_base, w_valid=val,
-                combine=combine, block_off=block_off, interpret=interpret)
-
-        x_cols, code_cols, _ = jax.lax.fori_loop(
-            round_offset, round_offset + iters, body,
-            (x_cols, code_cols, sigma0))
-        return _from_cols(x_cols, code_cols, schema, n_local)
-
-    return local(x_num, codes, num_null, cat_null, valid, key)
-
-
-
 def _checkpointed_rounds(t, x, c, n, iters, checkpoint_path,
                          checkpoint_every, padded, col_sh, run_chunk):
     """Shared round-boundary checkpoint driver for the sharded wrappers:
@@ -230,14 +150,12 @@ def run_mice_sharded(t: Table, num_null_cols=None, cat_null_cols=None,
                      lda_shrinkage: float = 0.001, noise: bool = False,
                      seed: int = 0, axis: str = "data",
                      trainer: str = "solve", kernel: str = "auto",
-                     chunk_cols: int = 8192,
+                     interpret: bool = False,
                      checkpoint_path: str | None = None,
                      checkpoint_every: int = 1) -> Table:
     """Host wrapper: mean/mode init, zero-weight row padding to the mesh
-    size, sharded placement, one dispatch, unpad. kernel='auto' on TPU
-    picks the fused impute+aggregate flagship kernel for the solve
-    trainer (BASELINE config 5's topology on the headline kernel),
-    'pallas_fast' for GD.
+    size, sharded placement, one dispatch, unpad. kernel: 'auto' | 'xla' |
+    'triton' (backend.resolve_kernel).
 
     checkpoint_path: persist the table every `checkpoint_every` rounds and
     resume from the latest checkpoint if one exists — a killed run resumes
@@ -250,25 +168,8 @@ def run_mice_sharded(t: Table, num_null_cols=None, cat_null_cols=None,
     mesh = mesh or make_mesh()
     ndev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
     n = t.n_rows
-    if kernel == "auto":
-        if jax.default_backend() in ("cpu",) or n // ndev < (1 << 20):
-            kernel = "xla"
-        elif trainer == "solve":
-            kernel = "pallas_fused"
-        else:
-            kernel = "pallas_fast"
-    if kernel == "pallas_fused" and noise:
-        from ..ring.kernels.sigma_pallas import _fast_cols_use_v3
-        if not _fast_cols_use_v3(schema):
-            import warnings
-            warnings.warn(
-                "this schema dispatches the v2 fused layout, which has no "
-                "in-kernel noise; falling back to the unfused pallas_fast "
-                "sharded loop for noise=True", stacklevel=2)
-            kernel = "pallas_fast"
-    from .device_round import _kernel_block
-    # shard-local rows kernel-aligned: per-round aggregations never pad
-    pad = (-n) % (ndev * _kernel_block(kernel, schema, chunk_cols))
+    kernel = resolve_kernel(kernel, schema.sigma_size, interpret=interpret)
+    pad = (-n) % ndev
 
     def padded(a, fill=0):
         if pad == 0 or a is None:
@@ -299,7 +200,7 @@ def run_mice_sharded(t: Table, num_null_cols=None, cat_null_cols=None,
         num_cols_to_impute=tuple(num_null_cols),
         cat_cols_to_impute=tuple(cat_null_cols), gd_iters=gd_iters,
         lda_shrinkage=lda_shrinkage, noise=noise, axis=axis,
-        trainer=trainer, kernel=kernel, chunk_cols=chunk_cols)
+        trainer=trainer, kernel=kernel, interpret=interpret)
     key = jax.random.PRNGKey(seed)
 
     if checkpoint_path is None:
@@ -329,7 +230,7 @@ def run_mice_sharded(t: Table, num_null_cols=None, cat_null_cols=None,
     jax.jit,
     static_argnames=("schema", "mesh", "num_cols_to_impute",
                      "cat_cols_to_impute", "gd_iters", "lda_shrinkage",
-                     "noise", "axis", "trainer", "kernel"))
+                     "noise", "axis", "trainer", "kernel", "interpret"))
 def mice_loop_sharded_delta(x_num, codes, num_null, cat_null, valid, key,
                             union_idx, union_valid, *,
                             schema: FeatureSchema, mesh,
@@ -339,7 +240,7 @@ def mice_loop_sharded_delta(x_num, codes, num_null, cat_null, valid, key,
                             lda_shrinkage: float = 0.001,
                             noise: bool = False, axis: str = "data",
                             trainer: str = "solve", kernel: str = "xla",
-                            round_offset=0):
+                            interpret: bool = False, round_offset=0):
     """The delta-MICE strategy (imputation_low.cpp:42-110,188-194) under one
     shard_map, COMPACT union form (see device_round._delta_round_columns
     for why per-round full-table gathers lost to the rescan): each shard
@@ -356,7 +257,7 @@ def mice_loop_sharded_delta(x_num, codes, num_null, cat_null, valid, key,
     from .device_round import (_delta_round_columns, _from_cols,
                                _make_delta_agg, _to_cols)
 
-    agg = _make_delta_agg(kernel, schema)
+    agg = _make_delta_agg(kernel, schema, interpret)
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -416,7 +317,8 @@ def run_mice_sharded_delta(t: Table, num_null_cols=None, cat_null_cols=None,
                            lda_shrinkage: float = 0.001,
                            noise: bool = False, seed: int = 0,
                            axis: str = "data",
-                           trainer: str = "solve",
+                           trainer: str = "solve", kernel: str = "auto",
+                           interpret: bool = False,
                            checkpoint_path: str | None = None,
                            checkpoint_every: int = 1) -> Table:
     """Host wrapper for sharded delta-MICE: mean/mode init, rows padded to
@@ -436,6 +338,7 @@ def run_mice_sharded_delta(t: Table, num_null_cols=None, cat_null_cols=None,
     schema = t.schema
     mesh = mesh or make_mesh()
     ndev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
+    kernel = resolve_kernel(kernel, schema.sigma_size, interpret=interpret)
     n = t.n_rows
     pad = (-n) % ndev
     m = (n + pad) // ndev          # rows per shard (block sharding)
@@ -490,7 +393,7 @@ def run_mice_sharded_delta(t: Table, num_null_cols=None, cat_null_cols=None,
         num_cols_to_impute=tuple(num_null_cols),
         cat_cols_to_impute=tuple(cat_null_cols), gd_iters=gd_iters,
         lda_shrinkage=lda_shrinkage, noise=noise, axis=axis,
-        trainer=trainer)
+        trainer=trainer, kernel=kernel, interpret=interpret)
     key = jax.random.PRNGKey(seed)
     if checkpoint_path is None:
         x_out, c_out = mice_loop_sharded_delta(

@@ -1,11 +1,16 @@
-"""Device-side (jittable) trainers — the on-TPU training path.
+"""Device-side (jittable) trainers — the on-device training path.
 
 The host trainers in linear_regression.py / lda.py are exact-parity f64
 LAPACK reproductions of the reference. These versions run the same
 algorithms as jit-compilable f32 programs so a FULL MICE column step
 (aggregate → train → predict → write-back) stays on-device under one jit,
 shardable over a mesh. The GD loop becomes a lax.while_loop with the nested
-backtracking loop intact (regression.cpp:179-238)."""
+backtracking loop intact (regression.cpp:179-238).
+
+Every f32 product that consumes a sigma states its precision: on a GPU an
+f32 dot at default precision rounds its inputs to TF32 (~3 decimal
+digits), and the quantities here (gradients, residual variances, QDA
+scores) are small differences of large sums."""
 from __future__ import annotations
 
 import functools
@@ -43,12 +48,15 @@ def linreg_train_device(sigma: jax.Array, *, label: int,
     lam = jnp.float32(lam)
     label_onehot = jax.nn.one_hot(label, p, dtype=jnp.float32)
 
+    hi = jax.lax.Precision.HIGHEST
+
     def gradient(theta):
-        g = sigma @ theta / jnp.maximum(n, 1.0)
+        g = jnp.dot(sigma, theta, precision=hi) / jnp.maximum(n, 1.0)
         return g * (1.0 - label_onehot)
 
     def error(theta):
-        e = theta @ (sigma @ theta) / jnp.maximum(n, 1.0)
+        e = (jnp.dot(theta, jnp.dot(sigma, theta, precision=hi),
+                     precision=hi) / jnp.maximum(n, 1.0))
         pn = theta[1:] @ theta[1:] - 1.0
         return (e + lam * pn) / 2.0
 
@@ -118,8 +126,8 @@ def linreg_solve_device(sigma: jax.Array, *, label: int,
                         lam: float = 0.0) -> jax.Array:
     """Direct least-squares trainer: the normal equations of the Gram
     objective solved in ONE SVD-backed lstsq instead of the reference's
-    200+ sequential GD iterations (regression.cpp:157-238 — pure dispatch
-    latency on TPU: each GD step is a tiny dependent matvec).
+    200+ sequential GD iterations (regression.cpp:157-238 — each GD step
+    is a tiny dependent matvec).
 
     minimize θᵀΣθ/N + λ(‖θ₁:‖²−1) s.t. θ[label] = −1  ⇒
         (Σ_keep/N + λ·diag(0,1,…)) w = Σ[keep, label]/N.
@@ -136,7 +144,8 @@ def linreg_solve_device(sigma: jax.Array, *, label: int,
         d = jnp.ones((p - 1,), jnp.float32).at[0].set(0.0)
         a = a + lam * jnp.diag(d)
     b = sigma[jnp.asarray(keep), label] / n
-    w = jnp.linalg.lstsq(a, b)[0]
+    with jax.default_matmul_precision("highest"):
+        w = jnp.linalg.lstsq(a, b)[0]
     coeff = jnp.zeros((p,), jnp.float32).at[jnp.asarray(keep)].set(w)
     return coeff.at[label].set(-1.0)
 
@@ -158,10 +167,10 @@ def mice_column_step_device(x_num, codes, null_mask, *, schema, label: int,
     """One fully-on-device MICE continuous-column step: masked aggregate →
     GD train → batched predict → masked write-back. jit/shard_map-able.
     x_num f32[d, n] features-first, codes i32[c, n], null_mask bool[n]."""
-    from ..ring.sum import linear_predict, masked_sigma
+    from ..ring.sum import aggregate_sigma, linear_predict
 
     w = 1.0 - null_mask.astype(jnp.float32)
-    sigma = masked_sigma(x_num, codes, w, schema=schema)
+    sigma = aggregate_sigma(x_num, codes, w, schema=schema)
     coeff = linreg_train_device(sigma, label=label + 1,
                                 max_iters=max_iters)
     theta = coeff * (1.0 - jax.nn.one_hot(label + 1, coeff.shape[0],
@@ -197,7 +206,8 @@ def qda_train_device(sigmas: jax.Array, tot: jax.Array, drop_d: int):
         intercept = (-0.5 * mu @ lin - 0.5 * logdet
                      + jnp.log(n_c / tot))
         return -0.5 * inva, lin, intercept
-    return jax.vmap(one)(sigmas)
+    with jax.default_matmul_precision("highest"):
+        return jax.vmap(one)(sigmas)
 
 
 @jax.jit
@@ -223,24 +233,17 @@ def qda_predict_device(quad, lin, intercept, x_num, codes, *,
     quad = −½cov⁻¹ negative definite, [C, m], [C]); features
     z = [x_num ‖ onehot] of width m = P−1. Scores stream per class over
     a factored form: quad = −LLᵀ (Cholesky of the PSD −quad), so
-    s_c = −‖Lᵀz‖² + lin_c·z + b_c — the square-reduce fuses into the
-    matmul's output on TPU instead of materializing the [m, n] product
-    of the naive zᵀ(Qz) form (measured 37.8 → 27.6 ms @10M rows, C=8).
-    Returns the argmax class INDEX i32[n] (callers map to label values
-    — the reference's QDA returns values, qda.cpp:483-486).
+    s_c = −‖Lᵀz‖² + lin_c·z + b_c — the square-reduce can fuse into the
+    matmul's output instead of materializing the [m, n] product of the
+    naive zᵀ(Qz) form. Products run in full f32, so exact ties are
+    decided the same way on every backend. Returns the argmax class
+    INDEX i32[n] (callers map to label values — the reference's QDA
+    returns values, qda.cpp:483-486).
 
-    method: 'auto' — ONE-table-pass Pallas kernel (all classes scored per
-    tile; 6.6 ms @10M — ring.kernels.qda_pallas) on TPU for v3-layout
-    schemas, else the XLA form; 'xla' forces the streaming-per-class
-    form (exact f32 scores — the Pallas scorer is split-precision
-    ~1e-7, which can flip exact ties)."""
-    if method == "auto":
-        from ..ring.kernels.sigma_pallas import _fast_cols_use_v3
-        if (jax.default_backend() not in ("cpu",)
-                and _fast_cols_use_v3(schema)):
-            from ..ring.kernels.qda_pallas import qda_predict_pallas
-            return qda_predict_pallas(quad, lin, intercept, x_num, codes,
-                                      schema=schema)
+    method: 'auto' | 'xla' (both the XLA scorer)."""
+    if method not in ("auto", "xla"):
+        raise ValueError(f"unknown QDA predict method {method!r}; valid "
+                         f"choices are 'auto', 'xla'")
     return _qda_predict_xla(quad, lin, intercept, x_num, codes,
                             schema=schema)
 
@@ -256,11 +259,15 @@ def _qda_predict_xla(quad, lin, intercept, x_num, codes, *, schema):
     chol = jnp.linalg.cholesky(-quad + 1e-12 * eye)      # [C, m, m]
     zt = _zt_block(x_num, codes, schema)[1:]             # [m, n]
 
+    hi = jax.lax.Precision.HIGHEST
+
     def one_class(cc, carry):
         best, idx = carry
-        y = jax.lax.dynamic_index_in_dim(chol, cc, keepdims=False).T @ zt
+        y = jnp.dot(jax.lax.dynamic_index_in_dim(chol, cc, keepdims=False).T,
+                    zt, precision=hi)
         s = (-jnp.sum(y * y, axis=0)
-             + jax.lax.dynamic_index_in_dim(lin, cc, keepdims=False) @ zt
+             + jnp.dot(jax.lax.dynamic_index_in_dim(lin, cc, keepdims=False),
+                       zt, precision=hi)
              + jax.lax.dynamic_index_in_dim(intercept, cc))
         better = s > best
         return jnp.where(better, s, best), jnp.where(better, cc, idx)

@@ -181,6 +181,7 @@ def lda_predict(params: np.ndarray, x_num, codes=None, *,
     # columns: n_cat values = (n_cat-1)+1 boundaries, first always 0
     feats = _onehot_features_t(x_num, codes, p.offsets if v > 0 else [0], v,
                                normalize, p.num_means, p.cat_means)
-    scores = jnp.asarray(p.coef, jnp.float32).T @ feats \
+    scores = jnp.dot(jnp.asarray(p.coef, jnp.float32).T, feats,
+                     precision=jax.lax.Precision.HIGHEST) \
         + jnp.asarray(p.intercept, jnp.float32)[:, None]
     return jnp.argmax(scores, axis=0).astype(jnp.int32)

@@ -218,7 +218,7 @@ def linreg_predict(params: np.ndarray, x_num, codes=None, *,
     p = LinregParams.decode(params, dn, normalize, has_var)
     w_num = jnp.asarray(p.num_coef, jnp.float32)
     pred = jnp.full((n,), p.intercept, jnp.float32)
-    pred = pred + w_num @ x_num
+    pred = pred + jnp.dot(w_num, x_num, precision=jax.lax.Precision.HIGHEST)
     if normalize:
         pred = pred - jnp.float32(float(np.dot(p.num_means, p.num_coef)))
     if p.n_cat > 0 and codes is not None:

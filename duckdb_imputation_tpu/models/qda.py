@@ -212,7 +212,7 @@ def qda_predict(params: np.ndarray, x_num, codes=None, *,
     # large entries), so we re-center per class on the host in f64:
     #   L = Σ⁻¹μ = -2Qμ  ⇒  μ_c = solve(-2Q_c, L_c)
     #   score = (x-μ)ᵀQ(x-μ) + [b - μᵀQμ]
-    # — identical value, well-conditioned on the MXU.
+    # — identical value, well-conditioned in f32.
     n_cls, m = p.quad.shape[0], p.quad.shape[1]
     mus = np.zeros((n_cls, m))
     const = np.zeros(n_cls)

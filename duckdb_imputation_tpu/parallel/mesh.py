@@ -3,9 +3,9 @@
 The reference's only parallelism is DuckDB's intra-process morsel-driven
 aggregation (per-thread SumStates merged by SumStateCombine,
 sum_state.cpp:10-114); there is no distributed backend at all (SURVEY.md §2).
-The TPU-native equivalent: a 1-D (or (hosts, chips)) jax.sharding.Mesh; rows
-are sharded over the 'data' axis, partial triples are psum'd over ICI — the
-combine step becomes an XLA collective.
+The equivalent here: a 1-D jax.sharding.Mesh over the devices; rows are
+sharded over the 'data' axis, partial triples are psum'd across devices —
+the combine step becomes an XLA collective.
 """
 from __future__ import annotations
 

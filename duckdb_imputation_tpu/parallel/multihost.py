@@ -1,14 +1,13 @@
 """Multi-host orchestration.
 
 The reference is single-process (SURVEY.md §2: no MPI/NCCL/RPC anywhere).
-The TPU-native story is JAX's multi-controller runtime: every host runs the
-same program, `jax.distributed.initialize` wires the slice, and the mesh
-spans hosts × chips. Everything else in this framework is already
+The multi-host story is JAX's multi-controller runtime: every host runs the
+same program, `jax.distributed.initialize` wires the processes, and the
+mesh spans hosts × devices. Everything else in this framework is already
 multi-host-shaped:
 
-  * the aggregation kernels run under shard_map with a 'data' axis — on a
-    pod slice the psum rides ICI within the slice and DCN across slices
-    with no code change;
+  * the aggregation kernels run under shard_map with a 'data' axis — the
+    psum spans every process's devices with no code change;
   * per-host rows enter through `host_local_table` (each host loads its own
     CSV shard via the native loader; `make_global_arrays` assembles the
     jax.Array view);
@@ -31,8 +30,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Wire the multi-controller runtime (no-op on a single process).
-    On Cloud TPU the arguments auto-detect from the metadata server."""
+    """Wire the multi-controller runtime (no-op on a single process). On
+    hosts with no cluster environment pass coordinator_address
+    ('host:port'), num_processes and process_id explicitly."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,

@@ -9,27 +9,25 @@ For the plain triple the all-reduce payload is one (P, P) f32 — a few KB —
 so overlap is irrelevant: XLA hides it entirely behind anything. Overlap
 *matters* when the one-hot-expanded width is large (big vocabularies): the
 sigma collective is then P×P at megabytes and serializing
-[all compute] → [one giant psum] leaves the ICI idle during compute and the
-MXU idle during exchange.
+[all compute] → [one giant psum] leaves the links idle during compute and
+the compute units idle during exchange.
 
 This module pipelines the two: sigma is computed in COLUMN STRIPES
 (S[:, lo:lo+w] = Zᵀ diag(w) Z[:, lo:lo+w], exactly as ring/striped.py), and
 each stripe is psum'd as soon as it is produced, inside a `lax.scan` within
 `shard_map`. Stripe k's all-reduce has no data dependence on stripe k+1's
-matmul — the structural property that lets XLA's TPU scheduler issue the
+matmul — the structural property that lets XLA's scheduler issue the
 collective asynchronously (all-reduce-start/-done pairs) behind the next
-stripe's Gram, i.e. a software-pipelined reduce keeping both MXU and ICI
-busy in steady state.
+stripe's Gram, i.e. a software-pipelined reduce keeping both compute and
+links busy in steady state.
 
-Verification status (single-real-chip environment — multi-chip ICI timing
-cannot be measured here): the compiled module is checked to carry the
+Verification status: the compiled module is checked to carry the
 per-stripe [P, P/n_stripes] all-reduce INSIDE the stripe loop rather than
 one fused [P, P] collective after all compute
 (tests/test_sharded.py::test_overlapped_hlo_has_per_stripe_collectives),
 and stripe-k-independence holds by construction. The actual concurrent
-issue is XLA-TPU scheduler behavior (async collectives are its default for
-independent all-reduces) — DESIGN INTENT validated structurally, not yet a
-wall-clock measurement on a pod slice.
+issue is XLA scheduler behavior — design intent validated structurally,
+not yet a wall-clock measurement across devices.
 
 The result equals the unstriped sharded path up to f32 row-chunk
 accumulation order (count-valued sections are exact): striping partitions

@@ -3,9 +3,9 @@
 This is the data-parallel analogue of the reference's thread-level
 aggregation (SumNoLift update per thread → SumStateCombine merge,
 sum_state.cpp:10-114), mapped onto a device mesh: every device runs the
-dense masked-Gram kernel on its row shard, and one `psum` over the mesh
-axis IS the combine — the whole communication story for a triple is a
-single all-reduce of a (P,P) f32 matrix riding ICI.
+dense masked-Gram aggregation (`ring.sum.aggregate_sigma`) on its row
+shard, and one `psum` over the mesh axis IS the combine — the whole communication story for a triple is a
+single all-reduce of a (P,P) f32 matrix.
 
 Row counts are padded to a multiple of the mesh size with zero-weight rows
 (padding is free because the mask is fused into the kernel).
@@ -21,7 +21,8 @@ from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from ..schema import FeatureSchema
-from ..ring.sum import DEFAULT_ROW_CHUNK, masked_sigma
+from ..backend import resolve_kernel
+from ..ring.sum import DEFAULT_ROW_CHUNK, aggregate_sigma, masked_sigma
 from ..ring.triple import NBAgg, Triple, triple_from_sigma
 from .mesh import DATA_AXIS, make_mesh
 
@@ -37,16 +38,21 @@ def _pad_to(arr, mult, axis=-1):
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("schema", "mesh", "row_chunk", "axis"))
+                   static_argnames=("schema", "mesh", "row_chunk", "axis",
+                                    "kernel"))
 def _sharded_sigma(x_num, codes, weights, *, schema: FeatureSchema, mesh,
-                   row_chunk: int, axis: str):
+                   row_chunk: int, axis: str, kernel: str):
     @functools.partial(
         shard_map, mesh=mesh,
         in_specs=(P(None, axis), P(None, axis), P(axis)),
         out_specs=P(),
+        # pallas_call outputs carry no varying-mesh-axes annotation, so the
+        # vma check rejects the Gram kernel inside shard_map
+        check_vma=False,
     )
     def local(xn, cd, w):
-        sigma = masked_sigma(xn, cd, w, schema=schema, row_chunk=row_chunk)
+        sigma = aggregate_sigma(xn, cd, w, schema=schema, kernel=kernel,
+                                row_chunk=row_chunk)
         return jax.lax.psum(sigma, axis)          # the combine step
 
     return local(x_num, codes, weights)
@@ -58,7 +64,8 @@ def sum_to_triple_sharded(x_num=None, codes=None, weights=None, *,
                           axis: str = DATA_AXIS) -> Triple:
     """Drop-in sharded `sum_to_triple`: rows sharded over `axis`, partial
     sigmas psum'd. Exactly equal to the single-device result up to f32
-    reduction order (tested for exact equality on integer-valued sections)."""
+    reduction order (tested for exact equality on integer-valued sections).
+    Each shard aggregates with the kernel `backend.resolve_kernel` picks."""
     mesh = mesh or make_mesh()
     nd = np.prod([mesh.shape[a] for a in mesh.axis_names])
     n = x_num.shape[-1] if x_num is not None else codes.shape[-1]
@@ -72,7 +79,8 @@ def sum_to_triple_sharded(x_num=None, codes=None, weights=None, *,
     codes = jnp.asarray(_pad_to(np.asarray(codes, np.int32), nd))
     weights = jnp.asarray(_pad_to(np.asarray(weights, np.float32), nd))
     sigma = _sharded_sigma(x_num, codes, weights, schema=schema, mesh=mesh,
-                           row_chunk=row_chunk, axis=axis)
+                           row_chunk=row_chunk, axis=axis,
+                           kernel=resolve_kernel("auto", schema.sigma_size))
     return triple_from_sigma(sigma, schema.num_cols)
 
 
@@ -152,7 +160,7 @@ def factorized_join_sum_sharded(x1=None, codes1=None, keys1=None,
     """Sharded factorized join-aggregate: each side's rows are sharded over
     the mesh; per-key partial triples are built shard-locally and psum'd
     (one collective per side), then the product-sum over join keys runs as
-    replicated MXU contractions (ring.triple.factorized_join_sum) — the
+    replicated contractions (ring.triple.factorized_join_sum) — the
     [G]-batched triples are tiny next to the row data, so the join itself
     costs no communication at all."""
     from ..ring.triple import factorized_join_sum

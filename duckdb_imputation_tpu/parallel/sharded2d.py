@@ -9,11 +9,10 @@ of the vocab (and therefore of sigma's columns):
     S[:, cols_m] = Zᵀ · diag(w) · Z[:, cols_m]
 
 Every (data, model) device builds the full-height Zᵀ for its row shard (the
-one-hot build is compute, not memory — it never materializes beyond a VMEM
-tile) but only the `cols_m` slice of the right operand; the psum over 'data'
-yields sigma column-sharded over 'model'. Communication: one psum of
-P × (P/M) per shard — a reduce-scatter of the full sigma in effect, riding
-ICI.
+one-hot build is compute, not memory — it never materializes beyond one
+row chunk) but only the `cols_m` slice of the right operand; the psum over
+'data' yields sigma column-sharded over 'model'. Communication: one psum of
+P × (P/M) per shard — a reduce-scatter of the full sigma in effect.
 
 The column slicing runs per-chunk inside the same streaming scan as the
 1D path, so the overlap requirement (exchange of partial triples overlapped

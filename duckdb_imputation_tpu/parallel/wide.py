@@ -14,7 +14,7 @@ consumer of `parallel/sharded2d.sigma_wide`:
     the same system `models.device.linreg_solve_device` solves densely;
     reference objective: /root/reference/imputation/ML/regression.cpp:48-77)
     where the matvec is   y = psum_m( S[:, cols_m] @ v[cols_m] )
-    — each CG iteration moves ONE P-vector over ICI; the P×P matrix never
+    — each CG iteration moves ONE P-vector between devices; the P×P matrix never
     moves and never gathers. Label row/col exclusion (θ[label] = −1) is a
     mask inside the operator, matching the dense trainer's `keep` slicing;
   * predict: θ is a tiny replicated P-vector; ŷ = θᵀZᵀ runs row-sharded

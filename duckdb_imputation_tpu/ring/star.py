@@ -9,7 +9,7 @@ that: the cofactor triple of
 
     fact ⋈_{k1} dim_1 ⋈_{k2} dim_2 ⋈ …      (FK → unique-PK joins)
 
-is computed from per-key aggregates and pure MXU contractions, never
+is computed from per-key aggregates and pure matrix contractions, never
 materializing the join. The algebra: let E_i = [num_i ‖ onehot(cat_i)] be
 dimension i's per-key feature matrix (K_i × m_i), w the row mask, and
 
@@ -40,9 +40,9 @@ from ..schema import FeatureSchema
 from .sum import DEFAULT_ROW_CHUNK, _zt_block, masked_sigma
 from .triple import Triple, triple_from_sigma
 
-# key spaces up to this size aggregate via chunk-scanned one-hot matmuls on
-# the MXU (O(n·K) FLOPs but ~100x the throughput of scatter-adds); larger
-# key spaces fall back to segment-sums
+# key spaces up to this size aggregate via chunk-scanned one-hot matmuls
+# (O(n·K) FLOPs, where dense matmul throughput beats scatter-adds); larger
+# key spaces fall back to segment-sums. The value is untuned on the GPU.
 ONEHOT_KEY_LIMIT = 8192
 
 
@@ -83,7 +83,7 @@ def _grouped_sigma_row(x_num, codes, weights, keys, *, num_keys: int,
     """R[k] = per-key weighted sums of the fact sigma row
     [1 ‖ x_num ‖ onehot(cats)], f32[K, 1 + d + V].
 
-    MXU path (K ≤ ONEHOT_KEY_LIMIT): R = Σ_chunks OH_k (diag(w) Z)ᵀ — the
+    Matmul path (K ≤ ONEHOT_KEY_LIMIT): R = Σ_chunks OH_k (diag(w) Z)ᵀ — the
     one-hot key matrix is exact in bf16, the f32 feature operand runs at
     HIGHEST precision, so accuracy matches the segment-sum path. Large key
     spaces use combined-key segment-sums instead."""
@@ -124,7 +124,7 @@ def _cooccurrence(weights, ki, kj, num_i: int, num_j: int,
                   row_chunk: int = DEFAULT_ROW_CHUNK) -> jax.Array:
     """C[k,l] = Σ w over rows with (ki, kj) = (k, l), f32[K_i, K_j].
 
-    MXU path: C = Σ_chunks OH_i diag(w) OH_jᵀ — both operands are binary
+    Matmul path: C = Σ_chunks OH_i diag(w) OH_jᵀ — both operands are binary
     (exact in bf16) and the accumulation is f32, so the counts are EXACT
     at single-pass bf16 speed."""
     if num_i * num_j <= ONEHOT_KEY_LIMIT ** 2 and \
@@ -223,7 +223,7 @@ def star_join_sigma(x_f, c_f, weights, keys, dim_num, dim_codes, *,
          for i in range(nd)]                                 # [K_i, m_i]
     if max(num_keys) <= ONEHOT_KEY_LIMIT:
         # one fused scan: each dimension's one-hot built once per chunk,
-        # all R_i and C_ij accumulated on the MXU together
+        # all R_i and C_ij accumulated together
         R, C = _star_aggregates(x_f, c_f, weights, keys,
                                 num_keys=num_keys, schema=fact_schema,
                                 row_chunk=row_chunk)
@@ -292,8 +292,8 @@ def star_join_triple(x_f=None, c_f=None, weights=None, keys=(), dims=(), *,
     weights: f32[n] row weights. PRECISION: for binary weights (0/1 masks —
       what every MICE driver passes) all co-occurrence counts C_ij are EXACT
       (binary one-hots and masks are bf16-exact; accumulation is f32). A
-      NON-binary weight is rounded to bf16 inside the ≤ONEHOT_KEY_LIMIT MXU
-      co-occurrence path, while the >limit fallback uses exact f32
+      NON-binary weight is rounded to bf16 inside the ≤ONEHOT_KEY_LIMIT
+      matmul co-occurrence path, while the >limit fallback uses exact f32
       segment-sums — path-dependent precision. Pre-scale or use the
       segment-sum path (num_keys > ONEHOT_KEY_LIMIT) if bf16 weight
       rounding matters.

@@ -3,7 +3,7 @@
 The reference stores the triple as nested LIST/STRUCT vectors with per-column
 hash maps for the categorical sections (SQL STRUCT at
 /root/reference/duckdb_extension/src/triple/sum/sum.cpp:26-52, state at
-sum/sum_state.h:14-57). On TPU we densify against a per-table vocabulary
+sum/sum_state.h:14-57). Here we densify against a per-table vocabulary
 (see schema.FeatureSchema) so that
 
     Triple  ==  the blocks of the sigma matrix (ML/utils.cpp:176-310)
@@ -20,7 +20,7 @@ sum/sum_state.h:14-57). On TPU we densify against a per-table vocabulary
 
 With this layout the ring sum/subtract (sum_state.cpp:10-114, imputation/triple/
 sub.cpp) are elementwise pytree adds, and the join multiply (mul.cpp:19-611)
-is pure outer-product block assembly — all MXU/VPU friendly, no hash maps.
+is pure outer-product block assembly — dense device math, no hash maps.
 
 NB aggregates (the 4-field variant, sum/sum_to_nb_agg.cpp:18-35) keep only the
 diagonal of quad and the lin_cat counts.
@@ -170,7 +170,7 @@ def factorized_join_sum(a: Triple, b: Triple) -> Triple:
     materializing G ring products ([G, d+d', d+d'] quad blocks) and summing,
     each block of the sum IS a contraction over the key axis:
 
-      Sum_g outer(lin_a[g], lin_b[g])  =  lin_a^T @ lin_b     (one MXU matmul)
+      Sum_g outer(lin_a[g], lin_b[g])  =  lin_a^T @ lin_b     (one matmul)
       Sum_g quad_a[g] * nb[g]          =  einsum('gij,g->ij')
 
     so the whole join-aggregate compiles to a handful of matmuls — O(G * m^2)

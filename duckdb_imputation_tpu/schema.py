@@ -1,6 +1,6 @@
 """Feature schema: the static description of a (numeric, categorical) column set.
 
-TPU-native replacement for the reference's per-call vocabulary machinery
+Replacement for the reference's per-call vocabulary machinery
 (`n_cols_1hot_expansion`, /root/reference/duckdb_extension/src/ML/utils.cpp:520-576):
 instead of re-deriving the sorted per-column category dictionary from every triple's
 nested maps, we build it once per table and carry it as a static schema. All dense

@@ -5,7 +5,7 @@ tests drive `SELECT sum_to_triple_3_3(a,b,c,d,e,f) FROM test GROUP BY gb`
 (duckdb_extension/test/python/test_sum.py) and its MICE driver issues
 CREATE TABLE / train / CASE-WHEN predict / ALTER TABLE column-swap
 statements (imputation/algorithms/imputation_base.cpp:21-142). This module
-lets those statements run unchanged against the TPU framework:
+lets those statements run unchanged against this framework:
 
     con = sql.connect()
     con.execute("CREATE TABLE test(gb INTEGER, a FLOAT, b FLOAT, ...)")
@@ -43,7 +43,7 @@ sum_to_triple_<x>_<y>, multiply_triple, the NB variants, and
 MICE SQL needs (AVG, SUM, COUNT, MIN, MAX, MODE, COALESCE, list_position,
 list_extract — partition.cpp:42-57,749-801).
 
-Aggregation maps to the TPU ring layer: WHERE masks and GROUP BY keys feed
+Aggregation maps to the ring layer: WHERE masks and GROUP BY keys feed
 `api.sum_to_triple(weights=…, group_by=…)`, i.e. the same masked/grouped
 Gram kernels as the direct API.
 """
@@ -1456,7 +1456,7 @@ class Connection:
         if e[0] == "call" and e[1] in ("multiply_triple", "multiply_nb_agg"):
             # sum_triple(multiply_triple(A, B)) — the factorized-join plan
             # (README.md:163-174). Fuse the per-key products and their sum
-            # into ONE device dispatch of MXU contractions over the key axis
+            # into ONE device dispatch of contractions over the key axis
             # (ring.triple.factorized_join_sum) instead of 2 dispatches per
             # joined row.
             import jax

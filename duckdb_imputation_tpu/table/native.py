@@ -2,7 +2,9 @@
 (native/columnar.cpp) — the C++ host-runtime half of the framework: parse
 and encode on CPU threads, hand dense features-first buffers to JAX.
 
-Auto-builds the shared library with `make` on first use if missing.
+The shared library is not tracked: it is built from native/columnar.cpp
+with `make` on first use (and rebuilt when its ABI is older than this
+checkout's).
 """
 from __future__ import annotations
 
@@ -21,8 +23,17 @@ _lib = None
 
 
 def _build():
-    subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)], check=True,
-                   capture_output=True)
+    """Build to a temporary name, then rename into place: a concurrent
+    loader never sees a half-written library, and the rename gives the
+    new library a fresh inode (glibc's dlopen caches by (dev, inode))."""
+    tmp = f"libdbi_native.so.{os.getpid()}.tmp"
+    res = subprocess.run(
+        ["make", "-B", "-C", os.path.abspath(_NATIVE_DIR), f"TARGET={tmp}"],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building the native library failed "
+                           f"(make -C native):\n{res.stdout}{res.stderr}")
+    os.replace(os.path.join(os.path.abspath(_NATIVE_DIR), tmp), _LIB_PATH)
 
 
 _ABI_VERSION = 3
@@ -44,14 +55,13 @@ def load_library() -> ctypes.CDLL:
         stale = True
     if stale:
         del lib
-        # glibc's dlopen caches by (dev, inode) and `g++ -shared -o`
-        # relinks IN PLACE, so a second CDLL on the same path would
-        # return the stale mapping — unlink first to force a new inode
-        os.remove(_LIB_PATH)
         _build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.dbi_version.restype = ctypes.c_int64
-        assert lib.dbi_version() >= _ABI_VERSION
+        if lib.dbi_version() < _ABI_VERSION:
+            raise RuntimeError(
+                f"{_LIB_PATH} reports ABI {lib.dbi_version()} after a "
+                f"rebuild; this checkout needs {_ABI_VERSION}")
     lib.dbi_load_csv.restype = ctypes.c_void_p
     lib.dbi_load_csv.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
     lib.dbi_free.argtypes = [ctypes.c_void_p]
@@ -108,14 +118,16 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def format_csv_block(cols, is_int, n_threads: int = 0) -> bytes:
+def format_csv_block(cols, is_int, n_threads: int = 0) -> memoryview:
     """Format a chunk of columns into CSV text natively (multithreaded
-    to_chars — the write-back half of the out-of-core path; np.savetxt is
-    ~50× slower). cols: list of [m] arrays; is_int[c] selects integer
+    to_chars — the write-back half of the out-of-core path, in place of
+    np.savetxt). cols: list of [m] arrays; is_int[c] selects integer
     formatting (exact to 2^53) vs float. Float cells are NARROWED TO f32
     and emitted as the shortest f32 round-trip repr — bit-exact through
     reload for the pipeline's f32 tables, lossy for genuine f64 input.
-    NaN ⇒ empty field (the loader's null convention)."""
+    NaN ⇒ empty field (the loader's null convention). Returns a
+    memoryview over the formatted bytes in a buffer of its own — file
+    writes take it without a copy; `bytes(...)` makes a bytes object."""
     lib = load_library()
     k = len(cols)
     m = len(cols[0]) if k else 0

@@ -3,9 +3,8 @@
 Replaces the reference's DuckDB storage layer for the imputation workload:
 
 - columns: FEATURES-FIRST device arrays — num_data f32[d, n],
-  cat_codes i32[c, n]. TPU tiles the minor-most axis to 128 lanes, so
-  row-major [n, d] column data with small d would be padded 128/d× in HBM
-  (measured 32× for d=4); features-first is dense and IS columnar storage.
+  cat_codes i32[c, n]: each column is one contiguous run, which IS
+  columnar storage.
   FLOAT/DOUBLE ⇒ numeric, anything else ⇒ categorical — the reference's
   dispatch rule (triple/lift.cpp:34-37).
 - null masks: bool[d, n] — the `<col>_IS_NULL` flag columns that

@@ -3,9 +3,9 @@ driver `scalability_col_exp` (imputation/include/column_scalability.h; its
 .cpp is not in the reference repo — SURVEY.md §2 'dead headers'): measure
 MICE round time as the number of columns grows, at fixed row count.
 
-On TPU the cost model is explicit: the masked-Gram aggregation is
-O(n·P²/MXU) with P = 1 + d_num + Σ|vocab|, and each null column adds one
-aggregation + train + predict per round.
+The cost model is explicit: the masked-Gram aggregation is O(n·P²) with
+P = 1 + d_num + Σ|vocab|, and each null column adds one aggregation +
+train + predict per round.
 
     python examples/column_scalability.py [--rows 1000000] \
         [--cols 2 4 8 16] [--iters 2]

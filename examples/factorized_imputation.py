@@ -8,7 +8,7 @@ column to impute depends on dimension attributes, so good imputation
 requires training over the JOIN — which factorized MICE does without ever
 materializing it: the dimension side is ring-aggregated once per key, each
 round's training triple is (grouped fact aggregate) x (dim aggregate)
-contracted over the key axis on the MXU.
+contracted over the key axis as matrix products.
 
     python examples/factorized_imputation.py [--rows 1000000] [--keys 512]
 """

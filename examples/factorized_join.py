@@ -56,7 +56,7 @@ def main():
 
     # ---- direct API: grouped triples → fused contraction over keys -------
     # factorized_sum ≡ sum_triple(multiply_triple(A, B)) over all keys, as a
-    # handful of MXU matmuls — no per-key products ever materialize.
+    # handful of matmuls — no per-key products ever materialize.
     t1 = api.sum_to_triple(b, c1, d, group_by=gb1, num_groups=args.keys)
     t2 = api.sum_to_triple(a, c2, f, group_by=gb2, num_groups=args.keys)
     total = api.factorized_sum(t1, t2)

@@ -1,17 +1,12 @@
-"""Production MICE — the flagship multi-chip path with crash recovery.
+"""Production MICE — the multi-device path with crash recovery.
 
-Drives `run_mice_sharded(kernel='pallas_fused')`: the fused
-impute+aggregate Pallas kernel runs per shard of a `jax.sharding.Mesh`
-data axis, each pass emitting the shard-local next-column sigma that one
-psum combines before the replicated solve (the analogue of the
-reference's per-thread SumState merge, sum_state.cpp:10-114, with the
-all-reduce as the combine). Round-boundary checkpointing makes a killed
-run resume onto the identical trajectory (noise keys fold global rounds).
-
-On a machine with one device this runs on a 1-device mesh and is
-bit-identical to the single-device fused loop; on a pod slice the same
-code spans every chip. CPU runs fall back to the XLA kernel
-automatically (kernel='auto').
+Drives `run_mice_sharded`: every device aggregates its row shard of a
+`jax.sharding.Mesh` data axis and one psum combines the partial sigmas
+before the replicated solve (the analogue of the reference's per-thread
+SumState merge, sum_state.cpp:10-114, with the all-reduce as the
+combine). Round-boundary checkpointing makes a killed run resume onto the
+identical trajectory (noise keys fold global rounds). kernel='auto'
+picks the Gram kernel on a GPU and the XLA aggregation elsewhere.
 
     python examples/production_mice.py [--rows 200000] [--iters 5]
 """
@@ -35,8 +30,7 @@ def main():
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--noise", action="store_true",
-                    help="stochastic-regression imputation (in-kernel "
-                         "Box-Muller draws on the fused TPU path)")
+                    help="stochastic-regression imputation")
     args = ap.parse_args()
 
     rng = np.random.default_rng(0)

@@ -1,9 +1,9 @@
 // Native columnar store + CSV loader for duckdb_imputation_tpu.
 //
-// TPU-native replacement for the reference's host engine storage layer
+// Replacement for the reference's host engine storage layer
 // (DuckDB 0.9.2 + the column-swap patch, /root/reference/
 // duckdb_imputation.patch:26-175): a minimal columnar table whose job is to
-// feed the JAX/TPU compute path with dense FEATURES-FIRST buffers:
+// feed the JAX device compute path with dense FEATURES-FIRST buffers:
 //
 //   * multithreaded CSV parse (row-range partitioned, two-pass: index
 //     newlines, then parse chunks in parallel);

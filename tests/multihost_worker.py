@@ -149,61 +149,6 @@ np.testing.assert_allclose(x_loc, np.asarray(x1)[:, lo2:lo2 + per],
                            rtol=2e-3, atol=2e-3)
 np.testing.assert_array_equal(c_loc, np.asarray(c1)[:, lo2:lo2 + per])
 
-# --- the FLAGSHIP fused kernel in the sharded loop, across processes ---
-# (kernel='pallas_fused'): each fused pass emits the shard-local
-# next-column sigma, psum'd across the REAL process boundary before the
-# replicated solve. Pallas runs under the GENERIC interpreter
-# (interpret=True): force_tpu_interpret_mode's callback machinery
-# deadlocks inside multi-process collective programs (probed), while the
-# generic lowering is plain JAX ops and composes with gloo collectives.
-from duckdb_imputation_tpu.ring.kernels.sigma_fused import fused_block  # noqa: E402
-
-chunk_f = 32
-blk_f = fused_block(schema2, chunk_f)
-n_f = ndev * blk_f
-rep = -(-n_f // n2)
-xf_all = np.tile(x_f, (1, rep))[:, :n_f]
-cf_all = np.tile(c_f, (1, rep))[:, :n_f]
-nnf_all = np.tile(nn_all, (1, rep))[:, :n_f]
-cnf_all = np.tile(cn_all, (1, rep))[:, :n_f]
-perf = n_f // nproc
-lof = proc_id * perf
-
-
-def _globf(a, spec):
-    return mhu.host_local_array_to_global_array(
-        np.ascontiguousarray(a[..., lof:lof + perf]), mesh, spec)
-
-
-fused_kw = dict(schema=schema2, num_cols_to_impute=(1,),
-                cat_cols_to_impute=(0,), iters=2, noise=False,
-                trainer="solve", kernel="pallas_fused", chunk_cols=chunk_f,
-                interpret=True)
-xfo, cfo = mice_loop_sharded(
-    _globf(xf_all, P(None, "data")), _globf(cf_all, P(None, "data")),
-    _globf(nnf_all, P(None, "data")), _globf(cnf_all, P(None, "data")),
-    mhu.host_local_array_to_global_array(
-        np.ones(perf, np.float32), mesh, P("data")),
-    jax.random.PRNGKey(7), mesh=mesh, **fused_kw)
-xfo_loc = np.asarray(mhu.global_array_to_host_local_array(
-    xfo, mesh, P(None, "data")))
-cfo_loc = np.asarray(mhu.global_array_to_host_local_array(
-    cfo, mesh, P(None, "data")))
-
-# single-process ground truth: 1-device local mesh, same padded rows
-lmesh1 = Mesh(np.asarray(jax.local_devices()[:1]), ("data",))
-xf1, cf1 = mice_loop_sharded(
-    jax.device_put(xf_all, NamedSharding(lmesh1, P(None, "data"))),
-    jax.device_put(cf_all, NamedSharding(lmesh1, P(None, "data"))),
-    jax.device_put(nnf_all, NamedSharding(lmesh1, P(None, "data"))),
-    jax.device_put(cnf_all, NamedSharding(lmesh1, P(None, "data"))),
-    jax.device_put(np.ones(n_f, np.float32),
-                   NamedSharding(lmesh1, P("data"))),
-    jax.random.PRNGKey(7), mesh=lmesh1, **fused_kw)
-np.testing.assert_allclose(xfo_loc, np.asarray(xf1)[:, lof:lof + perf],
-                           rtol=2e-3, atol=2e-3)
-np.testing.assert_array_equal(cfo_loc, np.asarray(cf1)[:, lof:lof + perf])
-
 # --- the sharded DELTA loop (imputation_low.cpp:42-110 strategy) ---
 parts = build_partitions(t0)
 m_rows = n2 // ndev

@@ -66,205 +66,3 @@ def test_striped_sigma_equals_full():
     for lo, block in sigma_striped(num, codes, w, schema=schema, stripe=17):
         out[:, lo:lo + block.shape[1]] = np.asarray(block)
     np.testing.assert_allclose(out, full, rtol=1e-6, atol=1e-3)
-
-
-def test_grouped_pallas_interpret():
-    """The single-launch grouped kernel (interpret mode on CPU) matches the
-    masked path."""
-    import jax
-    from unittest import mock
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        sum_to_triple_grouped_pallas,
-    )
-    num, codes, g, schema = _data(n=6000)
-    with pltpu.force_tpu_interpret_mode():
-        got = sum_to_triple_grouped_pallas(num, codes, g, schema=schema,
-                                           num_groups=7, chunk_cols=512)
-    ref = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                method="masked")
-    np.testing.assert_array_equal(np.asarray(ref.n), np.asarray(got.n))
-    np.testing.assert_array_equal(np.asarray(ref.lin_cat),
-                                  np.asarray(got.lin_cat))
-    np.testing.assert_allclose(np.asarray(ref.quad), np.asarray(got.quad),
-                               rtol=1e-5, atol=1e-2)
-
-
-def test_grouped_pallas_unsorted_interpret():
-    """The zero-prep unsorted grouped kernel (all slabs VMEM-resident,
-    inline mask routing) matches the masked path, including empty groups,
-    out-of-range ids, non-binary weights, and block padding."""
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        sum_to_triple_grouped_unsorted,
-    )
-    rng = np.random.default_rng(9)
-    num, codes, g, schema = _data(n=6000)
-    g = np.where(g == 3, 99, g).astype(np.int32)      # out-of-range dropped
-    w = rng.random(6000).astype(np.float32)            # non-binary weights
-    with pltpu.force_tpu_interpret_mode():
-        got = sum_to_triple_grouped_unsorted(num, codes, g, schema=schema,
-                                             num_groups=7, weights=w)
-    ref = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                weights=w, method="masked")
-    np.testing.assert_allclose(np.asarray(ref.n), np.asarray(got.n),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(ref.lin_cat),
-                               np.asarray(got.lin_cat), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ref.quad), np.asarray(got.quad),
-                               rtol=1e-5, atol=1e-2)
-    np.testing.assert_allclose(np.asarray(ref.cat_cat),
-                               np.asarray(got.cat_cat), rtol=1e-5, atol=1e-2)
-
-
-def test_grouped_pallas_unsorted_fast_interpret():
-    """Split-precision unsorted grouped kernel (binary group masks): counts
-    exact, quad within the bf16-correction tolerance."""
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        sum_to_triple_grouped_unsorted,
-    )
-    num, codes, g, schema = _data(n=6000, skew=True)
-    with pltpu.force_tpu_interpret_mode():
-        got = sum_to_triple_grouped_unsorted(num, codes, g, schema=schema,
-                                             num_groups=7, fast=True,
-                                             chunk_cols=512)
-    ref = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                method="masked")
-    np.testing.assert_array_equal(np.asarray(ref.n), np.asarray(got.n))
-    np.testing.assert_array_equal(np.asarray(ref.lin_cat),
-                                  np.asarray(got.lin_cat))
-    np.testing.assert_array_equal(np.asarray(ref.cat_cat),
-                                  np.asarray(got.cat_cat))
-    np.testing.assert_allclose(np.asarray(ref.quad), np.asarray(got.quad),
-                               rtol=1e-4, atol=5e-2)
-    np.testing.assert_allclose(np.asarray(ref.lin), np.asarray(got.lin),
-                               rtol=1e-4, atol=1e-2)
-
-
-def test_grouped_pallas_presorted_fast_interpret():
-    """The v2 split-precision sorted-slab kernel (fast=True layout: single
-    bf16 MXU pass per block, block→slab routing) matches the masked path —
-    counts/one-hot sections exact, quad within split-precision tolerance.
-    Covers empty groups, out-of-range ids, binary (mask) weights, and the
-    default fast public dispatch of sum_to_triple_grouped_pallas."""
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        sort_by_group,
-        sum_to_triple_grouped_presorted,
-    )
-    num, codes, g, schema = _data(n=4000, skew=True)
-    g = np.where(g == 5, 99, g).astype(np.int32)   # group 5 empty, some OOR
-    w = (np.arange(len(g)) % 3 != 0).astype(np.float32)   # binary mask
-
-    # ONE pallas call under interpret mode: the interpret machinery
-    # simulates per-device DMA clocks for all 8 virtual devices and its
-    # cost grows superlinearly with accumulated calls per process. The
-    # public sum_to_triple_grouped_pallas default (weights=None -> fast)
-    # dispatches to exactly this sort_by_group+presorted pair.
-    with pltpu.force_tpu_interpret_mode():
-        x_s, c_s, w_s, layout = sort_by_group(
-            num, codes, g, schema=schema, num_groups=7, weights=w,
-            fast=True, chunk_cols=512)
-        # fast layout geometry follows the dispatched kernel's sizing
-        # (v3 compact here: pack 5 at this schema)
-        from duckdb_imputation_tpu.ring.kernels.sigma_pallas import (
-            _sizing_fast3,
-        )
-        assert layout.fast and layout.block == _sizing_fast3(schema)[3] * 512
-        got = sum_to_triple_grouped_presorted(x_s, c_s, w_s, layout,
-                                              schema=schema)
-    ref = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                weights=w, method="masked")
-    np.testing.assert_array_equal(np.asarray(ref.n), np.asarray(got.n))
-    np.testing.assert_array_equal(np.asarray(ref.lin_cat),
-                                  np.asarray(got.lin_cat))
-    np.testing.assert_array_equal(np.asarray(ref.cat_cat),
-                                  np.asarray(got.cat_cat))
-    np.testing.assert_allclose(np.asarray(ref.quad), np.asarray(got.quad),
-                               rtol=1e-4, atol=5e-2)
-    np.testing.assert_allclose(np.asarray(ref.lin), np.asarray(got.lin),
-                               rtol=1e-4, atol=1e-2)
-
-
-def test_grouped_pallas_presorted_reuse():
-    """sort_by_group once, aggregate repeatedly with CHANGED weights — the
-    amortized per-class pattern (layout reuse must track weights given in
-    sorted row order). Also covers empty groups + out-of-range ids through
-    the device prep."""
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        sort_by_group,
-        sum_to_triple_grouped_presorted,
-    )
-    num, codes, g, schema = _data(n=6000)
-    g = np.where(g == 3, 99, g).astype(np.int32)   # group 3 empty, some OOR
-    w1 = (np.arange(len(g)) % 2 == 0).astype(np.float32)
-
-    with pltpu.force_tpu_interpret_mode():
-        x_s, c_s, w_s, layout = sort_by_group(
-            num, codes, g, schema=schema, num_groups=7, weights=w1)
-        got1 = sum_to_triple_grouped_presorted(x_s, c_s, w_s, layout,
-                                               schema=schema)
-        # second call: flip the weights IN SORTED ORDER (w_s>0 -> 0 swap),
-        # simulating a new per-round mask over the same clustering
-        w2_sorted = np.where(np.asarray(w_s) > 0, 0.0, 1.0).astype(np.float32)
-        # dummy/overflow rows must stay weight 0: recover validity from the
-        # original padding (rows past each group's true count had w_s == 0
-        # AND were dummies; easiest faithful construction: sort w2 alongside)
-        w2 = 1.0 - w1
-        x_s2, c_s2, w2_s, layout2 = sort_by_group(
-            num, codes, g, schema=schema, num_groups=7, weights=w2)
-        got2 = sum_to_triple_grouped_presorted(x_s2, c_s2, w2_s, layout2,
-                                               schema=schema)
-
-    ref1 = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                 weights=w1, method="masked")
-    ref2 = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                 weights=w2, method="masked")
-    for ref, got in ((ref1, got1), (ref2, got2)):
-        np.testing.assert_array_equal(np.asarray(ref.n), np.asarray(got.n))
-        np.testing.assert_array_equal(np.asarray(ref.lin_cat),
-                                      np.asarray(got.lin_cat))
-        np.testing.assert_allclose(np.asarray(ref.quad),
-                                   np.asarray(got.quad), rtol=1e-5,
-                                   atol=1e-2)
-
-
-def test_grouped_pallas_unsorted_fast2_interpret():
-    """The v2 unsorted grouped kernel (packed array built once, one MXU
-    pass per group) matches the masked path: counts/one-hot exact, quad
-    within split-precision tolerance. Called directly — the public fast
-    dispatch now prefers the v3 compact kernel (covered above), v2 remains
-    the fallback for schemas whose v3 tail costs a pack slot."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas_grouped import (
-        _sigma_pallas_grouped_unsorted_fast2,
-    )
-    from duckdb_imputation_tpu.ring.kernels.sigma_pallas import _sizing_fast2
-    from duckdb_imputation_tpu.ring.triple import triple_from_sigma
-    num, codes, g, schema = _data(n=6000, skew=True)
-    g = np.where(g == 4, -3, g).astype(np.int32)   # OOR dropped, grp 4 empty
-    block = _sizing_fast2(schema)[4] * 512
-    pad = (-len(g)) % block
-    num_p = np.pad(num, ((0, 0), (0, pad)))
-    codes_p = np.pad(codes, ((0, 0), (0, pad)))
-    w_p = np.pad(np.ones(len(g), np.float32), (0, pad))
-    g_p = np.pad(g, (0, pad), constant_values=-1)
-    with pltpu.force_tpu_interpret_mode():
-        sigma = _sigma_pallas_grouped_unsorted_fast2(
-            jnp.asarray(num_p), jnp.asarray(codes_p), jnp.asarray(w_p),
-            jnp.asarray(g_p), schema=schema, num_groups=7, chunk_cols=512)
-    got = triple_from_sigma(sigma, schema.num_cols)
-    ref = sum_to_triple_grouped(num, codes, g, schema=schema, num_groups=7,
-                                method="masked")
-    np.testing.assert_array_equal(np.asarray(ref.n), np.asarray(got.n))
-    np.testing.assert_array_equal(np.asarray(ref.lin_cat),
-                                  np.asarray(got.lin_cat))
-    np.testing.assert_array_equal(np.asarray(ref.cat_cat),
-                                  np.asarray(got.cat_cat))
-    np.testing.assert_allclose(np.asarray(ref.quad), np.asarray(got.quad),
-                               rtol=1e-4, atol=5e-2)
-    np.testing.assert_allclose(np.asarray(ref.lin), np.asarray(got.lin),
-                               rtol=1e-4, atol=1e-2)

@@ -232,7 +232,7 @@ def test_overlapped_hlo_has_per_stripe_collectives():
     """The compiled striped program all-reduces per-stripe
     [P, P/n_stripes] payloads INSIDE the stripe loop — not one fused
     [P, P] collective after all compute. This is the structural property
-    that lets the XLA TPU scheduler issue stripe k's collective
+    that lets the XLA scheduler issue stripe k's collective
     asynchronously behind stripe k+1's matmuls (the overlap design-intent;
     multi-chip wall-clock cannot be measured in this 1-chip environment)."""
     import functools
@@ -485,64 +485,6 @@ def test_mice_sharded_delta_matches_device_delta():
     assert rmse < 0.05, rmse
 
 
-def test_mice_sharded_fused_matches_single_device_fused():
-    """kernel='pallas_fused' under shard_map (round-4 verdict ask #1): the
-    flagship fused impute+aggregate kernel runs per shard, each pass's
-    shard-local sigma psum'd before the replicated solve. Must match the
-    single-device fused loop — exact codes, numeric write-backs within the
-    psum reduction-order tolerance."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from duckdb_imputation_tpu.mice.device_round import mice_loop_device_fused
-    from duckdb_imputation_tpu.mice.sharded_round import mice_loop_sharded
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from duckdb_imputation_tpu.ring.kernels.sigma_fused import fused_block
-
-    rng = np.random.default_rng(29)
-    schema = FeatureSchema(num_cols=3,
-                           cat_keys=(tuple(range(3)), tuple(range(5))))
-    chunk = 128
-    blk = fused_block(schema, chunk)
-    n = 8 * blk                       # one fused block per shard
-    cls = rng.integers(0, 3, size=n)
-    z = rng.normal(size=n)
-    x = np.stack([cls * 2.0 + 0.3 * z,
-                  0.7 * cls + 0.2 * rng.normal(size=n),
-                  rng.normal(size=n)]).astype(np.float32)
-    c = np.stack([cls, rng.integers(0, 5, size=n)]).astype(np.int32)
-    nn = np.zeros((3, n), bool)
-    cn = np.zeros((2, n), bool)
-    nn[1, rng.random(n) < 0.2] = True
-    cn[0, rng.random(n) < 0.2] = True
-    kw = dict(schema=schema, num_cols_to_impute=(1,),
-              cat_cols_to_impute=(0,), iters=2)
-
-    with pltpu.force_tpu_interpret_mode():
-        xf, cf = mice_loop_device_fused(
-            jnp.asarray(x), jnp.asarray(c), jnp.asarray(nn),
-            jnp.asarray(cn), chunk_cols=chunk, **kw)
-        xf, cf = np.asarray(xf), np.asarray(cf)
-
-        mesh = make_mesh()
-        col_sh = NamedSharding(mesh, P(None, "data"))
-        xs, cs = mice_loop_sharded(
-            jax.device_put(x, col_sh), jax.device_put(c, col_sh),
-            jax.device_put(nn, col_sh), jax.device_put(cn, col_sh),
-            jax.device_put(np.ones(n, np.float32),
-                           NamedSharding(mesh, P("data"))),
-            jax.random.PRNGKey(0), mesh=mesh, kernel="pallas_fused",
-            chunk_cols=chunk, noise=False, trainer="solve", **kw)
-        xs, cs = np.asarray(xs), np.asarray(cs)
-
-    np.testing.assert_array_equal(cs, cf)
-    np.testing.assert_allclose(xs, xf, rtol=2e-3, atol=2e-3)
-    # observed cells untouched by either path
-    np.testing.assert_array_equal(xs[0], x[0])
-    np.testing.assert_array_equal(xs[1][~nn[1]], x[1][~nn[1]])
-
-
 def test_qda_predict_device_matches_host(table):
     """Batched device QDA predict (Cholesky-factored scoring) agrees with
     the host f64 predict on the same per-class triples."""
@@ -605,25 +547,17 @@ def test_nb_predict_device_matches_host(table):
     assert (got == want).mean() > 0.999, (got[:20], want[:20])
 
 
-def test_mice_sharded_fused_checkpoint_resume(tmp_path):
-    """Round-boundary checkpointing on the FUSED sharded kernel: a run
-    chunked per round (kill-and-resume) equals the single-dispatch run —
-    the fused round body folds the GLOBAL round index into its in-kernel
-    noise seed, so chunking must not change the trajectory."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("kernel, interpret", [("xla", False),
+                                               ("triton", True)])
+def test_mice_sharded_checkpoint_resume(tmp_path, kernel, interpret):
+    """Round-boundary checkpointing of the sharded loop on a mixed
+    3-numeric + 2-categorical table: a run killed after 1 of 3 rounds and
+    resumed equals the uninterrupted run, with either aggregation."""
     from duckdb_imputation_tpu.mice.sharded_round import run_mice_sharded
-    from duckdb_imputation_tpu.ring.kernels.sigma_fused import fused_block
     from duckdb_imputation_tpu.table import from_numpy
 
     rng = np.random.default_rng(33)
-    schema_probe = FeatureSchema(num_cols=3,
-                                 cat_keys=(tuple(range(3)),
-                                           tuple(range(5))))
-    chunk = 128
-    blk = fused_block(schema_probe, chunk)
-    n = 8 * blk
+    n = 4_099
     cls = rng.integers(0, 3, size=n)
     z = rng.normal(size=n)
     num = np.stack([cls * 2.0 + 0.3 * z,
@@ -634,21 +568,44 @@ def test_mice_sharded_fused_checkpoint_resume(tmp_path):
     cn = np.zeros_like(cat, bool)
     nn[rng.random(n) < 0.2, 1] = True
     cn[rng.random(n) < 0.2, 0] = True
-    mesh = make_mesh()
-    kw = dict(mesh=mesh, kernel="pallas_fused", chunk_cols=chunk,
-              trainer="solve", noise=False)
+    kw = dict(mesh=make_mesh(), kernel=kernel, interpret=interpret,
+              trainer="solve", noise=True, seed=3)
 
-    with pltpu.force_tpu_interpret_mode():
-        straight = run_mice_sharded(from_numpy(num, cat, nn, cn), iters=3,
-                                    **kw)
-        path = str(tmp_path / "fused.ckpt")
-        run_mice_sharded(from_numpy(num, cat, nn, cn), iters=1,
-                         checkpoint_path=path, **kw)      # "killed"
-        resumed = run_mice_sharded(from_numpy(num, cat, nn, cn), iters=3,
-                                   checkpoint_path=path, **kw)
+    straight = run_mice_sharded(from_numpy(num, cat, nn, cn), iters=3, **kw)
+    path = str(tmp_path / "sharded.ckpt")
+    run_mice_sharded(from_numpy(num, cat, nn, cn), iters=1,
+                     checkpoint_path=path, **kw)                # "killed"
+    resumed = run_mice_sharded(from_numpy(num, cat, nn, cn), iters=3,
+                               checkpoint_path=path, **kw)
 
     np.testing.assert_array_equal(np.asarray(resumed.cat_codes),
                                   np.asarray(straight.cat_codes))
     np.testing.assert_allclose(np.asarray(resumed.num_data),
                                np.asarray(straight.num_data),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_sharded_scan_path_equals_single(table):
+    """Shards longer than row_chunk take masked_sigma's lax.scan path inside
+    shard_map (the scan carry must vary over the mesh axis like the data);
+    counts exact, both ungrouped and grouped."""
+    from duckdb_imputation_tpu.parallel.sharded import (
+        sum_to_triple_grouped_sharded,
+    )
+
+    num, cat, g, w, schema = table
+    codes = schema.encode(cat).T
+    mesh = make_mesh()
+    single = sum_to_triple(num.T, codes, w, schema=schema)
+    shard = sum_to_triple_sharded(num.T, codes, w, schema=schema, mesh=mesh,
+                                  row_chunk=256)
+    np.testing.assert_array_equal(np.asarray(shard.n), np.asarray(single.n))
+    np.testing.assert_array_equal(np.asarray(shard.cat_cat),
+                                  np.asarray(single.cat_cat))
+    np.testing.assert_allclose(np.asarray(shard.quad),
+                               np.asarray(single.quad), rtol=1e-5)
+    grouped = sum_to_triple_grouped_sharded(num.T, codes, g, schema=schema,
+                                            num_groups=5, mesh=mesh,
+                                            row_chunk=256)
+    want = np.bincount(g, minlength=5)
+    np.testing.assert_array_equal(np.asarray(grouped.n), want)

@@ -219,7 +219,7 @@ def test_impute_csv_stream_end_to_end(tmp_path):
 def test_stream_gram_sharded_matches_single():
     """Out-of-core × multi-chip: the streaming Gram fold with each chunk
     row-sharded over the 8-device mesh (GSPMD psum combine) must equal the
-    single-device fold exactly — the SumStateCombine contract riding ICI
+    single-device fold exactly — the SumStateCombine contract as a psum
     while data streams from beyond HBM."""
     import jax
     from duckdb_imputation_tpu.parallel.mesh import make_mesh
